@@ -1,0 +1,285 @@
+"""Batched detection: pixels to per-class NMS in one pass per batch.
+
+Port of the JAX package's ``detect/detector.py`` (float path):
+
+  1. normalize (``normalize_s2d`` on host-packed planes, or
+     ``normalize_image`` on NHWC images);
+  2. pnet: the fused block0 kernel on the planes, then blocks 1-3 and the
+     anchor heads;
+  3. dense decode, keep P(fg) > ``detect_fg_threshold`` inside the image
+     and the true-size anchor maps;
+  4. top-K (K = ``max_proposals``) by score;
+  5. proposal NMS at IoU 0.25 (NMS kernel);
+  6. 6x6 ROI adaptive max pool of the survivors (ROI pool kernel);
+  7. cnet;
+  8. refine, keep non-background with confidence > ``detect_confidence``;
+  9. per-class NMS at IoU 0.1 (NMS kernel).
+
+``cfg.pallas_mode`` picks the kernels: "off" runs their plain PyTorch
+versions on every device; otherwise the kernel wrappers run, which launch
+the CUDA kernels on CUDA tensors and the plain versions on CPU tensors.
+Unlike the JAX package, the s2d layout also runs with "off" (the plain
+block0 reads the planes too).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from frcnn_tpu_torch.config import Config
+from frcnn_tpu_torch.geometry import boxes as B
+from frcnn_tpu_torch.geometry.anchors import AnchorGenerator
+from frcnn_tpu_torch.models.factory import compute_dtype, for_compute
+from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
+from frcnn_tpu_torch.ops import nms as nms_plain
+from frcnn_tpu_torch.ops import roi_pool as pool_plain
+from frcnn_tpu_torch.ops.color import unwire_uint8
+from frcnn_tpu_torch.ops.normalization import normalize_image, normalize_s2d
+
+PROPOSAL_NMS_IOU = 0.25     # Detector.lua:81
+CLASS_NMS_IOU = 0.1         # Detector.lua:133
+STAGES = ("b0", "fwd", "decode", "select", "nms", "pool", "cnet")
+
+
+def select_proposals(keep, score, k: int):
+    """Up to ``k`` gate-passing anchors per image, exact top-k by score,
+    ties to the lower anchor index (the order of ``lax.top_k``).
+
+    keep [B, A] bool, score [B, A]. Returns (indices [B, k] int64,
+    valid [B, k] bool)."""
+    masked = torch.where(keep, score, torch.full_like(score, -torch.inf))
+    top_s, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    return idx[:, :k], top_s[:, :k] > -torch.inf
+
+
+class DetectionResult(NamedTuple):
+    boxes: torch.Tensor            # [B, D, 4] refined (r2)
+    proposal_boxes: torch.Tensor   # [B, D, 4] stage-1 proposals (r)
+    classes: torch.Tensor          # [B, D] int32, 0-based
+    confidence: torch.Tensor       # [B, D] probability
+    fg_score: torch.Tensor         # [B, D] stage-1 P(fg)
+    valid: torch.Tensor            # [B, D] bool
+    proposals: torch.Tensor        # [B, D, 4] all stage-1 NMS survivors
+    proposals_valid: torch.Tensor  # [B, D] bool
+
+
+def _take(x, idx):
+    """Gather rows ``idx`` [B, K] along axis 1 of ``x`` [B, N, ...]."""
+    idx = idx.long()
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _cut_sum(*tensors):
+    """Float32 sum of every finite entry: a checksum of a truncated run."""
+    tot = 0.0
+    for t in tensors:
+        tf = t.float()
+        tot = tot + torch.where(torch.isfinite(tf), tf,
+                                torch.zeros_like(tf)).sum()
+    return tot
+
+
+def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
+                    device, block0_params=None,
+                    stop_after: str | None = None, counts=None):
+    """Returns ``detect(images, true_hw) -> DetectionResult``.
+
+    ``images``: NHWC [B, H, W, 3] tensor for ``input_layout='nhwc'``; the
+    (lum4, chroma) plane pair for ``'s2d'``. ``true_hw``: [B, 2] tensor.
+    ``block0_params``: (w27, bias, slope) of the block0 kernel (s2d only).
+    ``stop_after`` (one of :data:`STAGES`) ends the run after that stage
+    and returns a checksum of its outputs, for staged comparisons.
+    ``counts``: optional dict that receives ``proposals_in`` [B], the
+    gate-passing proposals entering the stage-1 NMS.
+    """
+    if stop_after is not None and stop_after not in STAGES:
+        raise ValueError(f"stop_after must be one of {STAGES}")
+    s = cfg.shapes
+    kh, kw = cfg.roi_pooling.kh, cfg.roi_pooling.kw
+    perm = gen.detect_order()
+    anchor_boxes = torch.from_numpy(gen.boxes[perm]).to(device)
+    fy_d = torch.from_numpy(gen.fy[perm]).to(device)
+    fx_d = torch.from_numpy(gen.fx[perm]).to(device)
+    K, D = s.max_proposals, s.max_detections
+    fm_loc = gen.fm_localizer
+    bg = cfg.class_count
+    conf_gate = cfg.detect_confidence
+    fg_gate = cfg.detect_fg_threshold
+    kernels = cfg.pallas_mode != "off"
+    s2d = cfg.input_layout == "s2d"
+    cdt = compute_dtype(cfg)
+    if s2d:
+        spec0 = cfg.model.layers[0]
+        if spec0.conv_steps != 1 or (spec0.kH, spec0.kW, spec0.padH,
+                                     spec0.padW) != (3, 3, 1, 1):
+            raise ValueError("the s2d block0 covers one 3x3/1/1 conv; the "
+                             "2-conv first block is a later slice")
+        if gen.image_hw[0] % 2 or gen.image_hw[1] % 2:
+            raise ValueError("the s2d layout needs an even-sized bucket")
+    if kernels:
+        batched_nms = nms_kernel.cuda_nms
+        batched_pool = roi_pool_kernel.adaptive_max_pool_valid
+        block0 = block0_kernel.fused_block0
+    else:
+        batched_nms = nms_plain.nms
+        batched_pool = pool_plain.adaptive_max_pool
+        block0 = block0_kernel.block0_plain
+    norm_kw = dict(method=cfg.normalization.method,
+                   width=cfg.normalization.width,
+                   centering=cfg.normalization.centering,
+                   scaling=cfg.normalization.scaling)
+
+    @torch.no_grad()
+    def detect(images, true_hw):
+        h = true_hw[:, 0]
+        w = true_hw[:, 1]
+        if s2d:
+            lum4, chroma = normalize_s2d(images[0].float(), images[1].float(),
+                                         h, w, **norm_kw)
+            w27, b0_bias, b0_slope = block0_params
+            b0 = block0(lum4.to(cdt).contiguous(), chroma.to(cdt).contiguous(),
+                        w27, b0_bias, b0_slope)
+            if stop_after == "b0":
+                return _cut_sum(b0)
+            anchor_maps, fm = pnet(None, block0_out=b0)
+        else:
+            images = unwire_uint8(images, cfg.color_space)
+            anchor_maps, fm = pnet(normalize_image(images.float(), h, w,
+                                                   **norm_kw))
+        if stop_after == "fwd":
+            return _cut_sum(*anchor_maps, fm)
+        bsz = anchor_maps[0].shape[0]
+        pred = torch.cat([m.reshape(bsz, -1, 6) for m in anchor_maps],
+                         dim=1).float()                       # [B, A, 6]
+        logp = torch.log_softmax(pred[..., 0:2], dim=-1)
+        score = logp[..., 0]
+        p_fg = torch.exp(score)
+        decoded = B.decode(anchor_boxes[None], pred[..., 2:6])
+        zero = torch.zeros_like(w, dtype=torch.float32)
+        img_rect = torch.stack([zero, zero, w.float(), h.float()], dim=-1)
+        keep = ((p_fg > fg_gate)
+                & B.overlaps(decoded, img_rect[:, None, :])
+                & gen.fm_valid_mask(h, w, fy=fy_d, fx=fx_d))
+        if counts is not None:
+            counts["proposals_in"] = torch.clamp(keep.sum(dim=1), max=K)
+        if stop_after == "decode":
+            return _cut_sum(decoded, score, keep)
+
+        top_idx, top_valid = select_proposals(keep, score, K)
+        top_boxes = _take(decoded, top_idx)
+        top_scores = torch.where(top_valid, _take(score, top_idx),
+                                 torch.full_like(top_valid, -torch.inf,
+                                                 dtype=torch.float32))
+        if stop_after == "select":
+            return _cut_sum(top_boxes, top_scores, top_idx)
+
+        nms_idx, prop_valid = batched_nms(top_boxes, top_scores, top_valid,
+                                          PROPOSAL_NMS_IOU, D)
+        cand = _take(top_idx, nms_idx.clamp(min=0))
+        prop_boxes = _take(decoded, cand)
+        prop_score = _take(p_fg, cand)
+        if stop_after == "nms":
+            return _cut_sum(prop_boxes, prop_score, nms_idx, prop_valid)
+
+        fw, fh = fm_loc.feature_map_size_t(w, h)
+        fr = pool_plain.prepare_roi_rects(
+            fm_loc.input_to_feature_rect_t(prop_boxes),
+            fw[:, None].float(), fh[:, None].float())
+        pooled = batched_pool(fm.contiguous(), fr, prop_valid, kh, kw)
+        pooled = pooled.reshape(bsz, D, -1)
+        if stop_after == "pool":
+            return _cut_sum(pooled)
+        creg, clogp = cnet(pooled)
+        if stop_after == "cnet":
+            return _cut_sum(creg, clogp)
+
+        refined = B.decode(prop_boxes, creg)
+        cls = torch.argmax(clogp, dim=-1)
+        conf = torch.exp(clogp.amax(dim=-1))
+        accept = prop_valid & (cls != bg) & (conf > conf_gate)
+        shifted = nms_plain.class_offset_boxes(refined, cls, accept)
+        fin_idx, f_valid = batched_nms(
+            shifted, torch.log(torch.clamp(conf, min=1e-20)), accept,
+            CLASS_NMS_IOU, D)
+        f_src = fin_idx.clamp(min=0)
+        vb = f_valid[:, :, None]
+        zf = torch.zeros((), device=refined.device)
+        return DetectionResult(
+            boxes=torch.where(vb, _take(refined, f_src), zf),
+            proposal_boxes=torch.where(vb, _take(prop_boxes, f_src), zf),
+            classes=torch.where(f_valid, _take(cls, f_src),
+                                torch.zeros((), dtype=cls.dtype,
+                                            device=cls.device)
+                                ).to(torch.int32),
+            confidence=torch.where(f_valid, _take(conf, f_src), zf),
+            fg_score=torch.where(f_valid, _take(prop_score, f_src), zf),
+            valid=f_valid,
+            proposals=torch.where(prop_valid[:, :, None], prop_boxes, zf),
+            proposals_valid=prop_valid,
+        )
+
+    return detect
+
+
+class Detector:
+    """The detect program for one config, on one device.
+
+    ``pnet``/``cnet``: the port's float32 modules with their weights
+    loaded (for example from ``utils/weights.py::from_jax_params``). The
+    Detector keeps its own copies, on ``device`` and cast once to the
+    config's compute dtype (``models/factory.py::for_compute``), so
+    Detectors built on the same modules do not change each other. Entry
+    points run on CUDA unless the caller passes ``device="cpu"``. The int8
+    serving chain is a later slice.
+    """
+
+    def __init__(self, cfg: Config, pnet, cnet, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        dt = compute_dtype(cfg)
+        self.pnet = for_compute(pnet, dt, self.device)
+        self.cnet = for_compute(cnet, dt, self.device)
+        self.gen = AnchorGenerator(cfg)
+        self.block0_params = None
+        if cfg.input_layout == "s2d":
+            # from the float32 modules: the kernel takes a float32 bias
+            conv0 = pnet.block0_conv0
+            w27, bias = block0_kernel.block0_weights(
+                conv0.weight.detach().to(self.device),
+                conv0.bias.detach().to(self.device), dt)
+            slope = pnet.block0_prelu0.weight.detach().float()
+            self.block0_params = (w27, bias,
+                                  slope.reshape(1).to(self.device))
+        self.last_counts = {}
+        self._detect = build_detect_fn(cfg, self.gen, self.pnet, self.cnet,
+                                       self.device, self.block0_params,
+                                       counts=self.last_counts)
+
+    def detect(self, images, true_hw) -> DetectionResult:
+        """``images``: NHWC [B, H, W, 3] (numpy or tensor; uint8 RGB or
+        float in the config's color space). With ``input_layout='s2d'``
+        the space-to-depth pack runs where the frames are: on the host
+        (numpy) for numpy or CPU frames, before the transfer; on the card
+        for CUDA frames. An already-packed (lum4, chroma) pair is taken as
+        is."""
+        true_hw = torch.as_tensor(true_hw).to(self.device)
+        if self.cfg.input_layout == "s2d":
+            if isinstance(images, (tuple, list)):
+                lum4, chroma = images
+            elif isinstance(images, torch.Tensor):
+                x = unwire_uint8(images, self.cfg.color_space)
+                lum4, chroma = block0_kernel.pack_s2d(x.float())
+            else:
+                x = unwire_uint8(np.asarray(images), self.cfg.color_space)
+                lum4, chroma = block0_kernel.pack_s2d_np(
+                    np.asarray(x, np.float32))
+            lum4 = torch.as_tensor(lum4).to(self.device, non_blocking=True)
+            chroma = torch.as_tensor(chroma).to(self.device,
+                                                non_blocking=True)
+            return self._detect((lum4, chroma), true_hw)
+        return self._detect(torch.as_tensor(images).to(self.device), true_hw)

@@ -1,0 +1,133 @@
+"""Dense multi-scale anchor field.
+
+Port of the JAX package's ``geometry/anchors.py::AnchorGenerator``. The
+tables are host-side numpy, computed once per bucket; the canonical flat
+order is (tap, aspect, y, x). An anchor map's channels ``[6j, 6j+6)`` hold
+``(cls_fg, cls_bg, x, y, w, h)`` of aspect ``j``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from frcnn_tpu_torch.config import Config
+from frcnn_tpu_torch.geometry.localizer import (
+    Localizer,
+    layer_infos_for_feature_map,
+    layer_infos_for_tap,
+)
+
+BIN_SIZE = 16  # nearby-anchor center hash granularity (``Anchors.lua:5``)
+
+
+def aspect_dims(scale: float) -> List[Tuple[float, float]]:
+    """(w, h) of the 3 equal-area aspects of ``scale`` (``Anchors.lua:32-35``)."""
+    a = scale / math.sqrt(2)
+    return [(float(scale), float(scale)), (2 * a, a), (a, 2 * a)]
+
+
+class AnchorGenerator:
+    """Static anchor field for one padded image bucket.
+
+    Attributes (numpy): ``boxes`` [A, 4] float32, ``tap``/``aspect``/``fy``/
+    ``fx``/``bin_x``/``bin_y`` [A] int32, ``tap_dims`` the (H, W) of each
+    anchor map for the padded bucket.
+    """
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        model = cfg.model
+        self.scales = cfg.scales
+        H, W = cfg.shapes.image_hw
+        self.image_hw = (H, W)
+        self.tap_localizers = [
+            Localizer(layer_infos_for_tap(model, i))
+            for i in range(len(cfg.scales))
+        ]
+        self.fm_localizer = Localizer(layer_infos_for_feature_map(model))
+        self.fm_hw = tuple(reversed(self.fm_localizer.feature_map_size(W, H)))
+
+        self.tap_dims: List[Tuple[int, int]] = []
+        boxes, taps, aspects, fys, fxs = [], [], [], [], []
+        for i, loc in enumerate(self.tap_localizers):
+            w_cells, h_cells = loc.feature_map_size(W, H)
+            self.tap_dims.append((h_cells, w_cells))
+            cx = self._centers(loc, w_cells, axis="x")
+            cy = self._centers(loc, h_cells, axis="y")
+            for j, (bw, bh) in enumerate(aspect_dims(self.scales[i])):
+                gx, gy = np.meshgrid(cx, cy)
+                b = np.stack([gx - bw / 2, gy - bh / 2, gx + bw / 2,
+                              gy + bh / 2], axis=-1)
+                boxes.append(b.reshape(-1, 4))
+                taps.append(np.full(h_cells * w_cells, i, np.int32))
+                aspects.append(np.full(h_cells * w_cells, j, np.int32))
+                yy, xx = np.meshgrid(np.arange(h_cells, dtype=np.int32),
+                                     np.arange(w_cells, dtype=np.int32),
+                                     indexing="ij")
+                fys.append(yy.reshape(-1))
+                fxs.append(xx.reshape(-1))
+
+        self.boxes = np.concatenate(boxes).astype(np.float32)
+        self.tap = np.concatenate(taps)
+        self.aspect = np.concatenate(aspects)
+        self.fy = np.concatenate(fys)
+        self.fx = np.concatenate(fxs)
+        centers = (self.boxes[:, :2] + self.boxes[:, 2:]) * 0.5
+        self.bin_x = np.floor(centers[:, 0] / BIN_SIZE).astype(np.int32)
+        self.bin_y = np.floor(centers[:, 1] / BIN_SIZE).astype(np.int32)
+        self.num_anchors = self.boxes.shape[0]
+
+    @staticmethod
+    def _centers(loc: Localizer, n_cells: int, axis: str) -> np.ndarray:
+        """Input-space center of each one-cell feature rect ``[c, c+1)``
+        (the localizer is affine: center(c) = S*c + C0)."""
+        if axis == "x":
+            s, bmin, bmax = loc.scale_x, loc.offset_min_x, loc.offset_max_x
+        else:
+            s, bmin, bmax = loc.scale_y, loc.offset_min_y, loc.offset_max_y
+        c0 = (s + bmin + bmax) / 2.0
+        return s * np.arange(n_cells, dtype=np.float64) + c0
+
+    def flat_slices(self) -> List[Tuple[int, int]]:
+        """[start, end) of each tap's anchors in the flat order."""
+        out, start = [], 0
+        for (h, w) in self.tap_dims:
+            out.append((start, start + 3 * h * w))
+            start += 3 * h * w
+        return out
+
+    def detect_order(self) -> np.ndarray:
+        """``perm[native_idx] = canonical_idx`` for the anchor maps' native
+        flat order (per tap: y, x, aspect, i.e. NHWC ``[H, W, 18]``
+        reshaped to ``[-1, 6]``)."""
+        parts, off = [], 0
+        for (h, w) in self.tap_dims:
+            n = h * w
+            yy, xx, jj = np.meshgrid(np.arange(h), np.arange(w),
+                                     np.arange(3), indexing="ij")
+            parts.append((off + jj * n + yy * w + xx).reshape(-1))
+            off += 3 * n
+        return np.concatenate(parts).astype(np.int32)
+
+    def fm_valid_mask(self, true_h, true_w, fy=None, fx=None):
+        """Anchors whose cell exists in the true-size anchor map (the
+        vectorized ``cleanAnchors``, ``objective.lua:32-43``).
+
+        ``true_h``/``true_w``: [B] tensors (or scalars). ``fy``/``fx``:
+        per-anchor cell tables (default: canonical order; a permutation
+        within tap blocks, such as :meth:`detect_order`, is fine). Returns
+        [B, A] bool (or [A] for scalar sizes) on the device of ``true_h``.
+        """
+        th = torch.as_tensor(true_h)
+        tw = torch.as_tensor(true_w, device=th.device)
+        fy = torch.as_tensor(self.fy if fy is None else fy, device=th.device)
+        fx = torch.as_tensor(self.fx if fx is None else fx, device=th.device)
+        parts = []
+        for (s, e), loc in zip(self.flat_slices(), self.tap_localizers):
+            w_t, h_t = loc.feature_map_size_t(tw, th)
+            parts.append((fy[s:e] < h_t[..., None]) & (fx[s:e] < w_t[..., None]))
+        return torch.cat(parts, dim=-1)

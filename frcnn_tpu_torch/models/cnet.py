@@ -1,0 +1,49 @@
+"""Classification head: MLP over pooled ROI features with a 4-dim box
+refinement head and a log-softmax class head.
+
+Port of the JAX package's ``models/cnet.py`` (eval only): Linear ->
+(BatchNorm) -> PReLU per hidden layer, then ``Linear(prev, 4)`` and
+``Linear(prev, C+1)`` + LogSoftMax. The input is the pooled ROI
+``[B, D, kh, kw, C]`` flattened in (y, x, c) order, the order of the
+JAX package's fc0 kernel rows. It computes in the dtype of its Linear
+parameters, and batch norm in float32 (see ``models/pnet.py``). Linear and
+PReLU parameters are left uninitialised (``skip_init``).
+"""
+
+from __future__ import annotations
+
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.nn.utils import skip_init
+
+from frcnn_tpu_torch.config import ModelConfig
+from frcnn_tpu_torch.models.layers import MaskedBatchNorm, prelu
+
+
+class ClassificationNet(nn.Module):
+    def __init__(self, model_cfg: ModelConfig, num_classes_with_bg: int,
+                 in_features: int):
+        super().__init__()
+        self.model_cfg = model_cfg
+        n = in_features
+        for li, spec in enumerate(model_cfg.class_layers):
+            self.add_module(f"fc{li}", skip_init(nn.Linear, n, spec.n))
+            if spec.batch_norm:
+                self.add_module(f"bn{li}", MaskedBatchNorm(spec.n))
+            self.add_module(f"prelu{li}", skip_init(nn.PReLU))
+            n = spec.n
+        self.reg_head = skip_init(nn.Linear, n, 4)
+        self.cls_head = skip_init(nn.Linear, n, num_classes_with_bg)
+
+    def forward(self, x):
+        """x: [..., R, D] -> (reg [..., R, 4] float32, log_probs
+        [..., R, C+1] float32)."""
+        x = x.to(self.reg_head.weight.dtype)
+        for li, spec in enumerate(self.model_cfg.class_layers):
+            x = getattr(self, f"fc{li}")(x)
+            if spec.batch_norm:
+                x = getattr(self, f"bn{li}")(x)
+            x = prelu(x, getattr(self, f"prelu{li}").weight)
+        reg = self.reg_head(x)
+        logits = self.cls_head(x)
+        return reg.float(), F.log_softmax(logits.float(), dim=-1)

@@ -1,0 +1,127 @@
+"""Fused first conv block (conv3x3 C=3->F + PReLU + 2x2/2 max pool) from
+space-to-depth planes, on the hand-written CUDA kernel ``csrc/block0.cu``.
+
+Port of ``frcnn_tpu/ops/pallas_block0.py`` (float output mode). The planes
+are the JAX package's host layout, built by :func:`pack_s2d_np`:
+
+  lum4   [B, 4, Hc, Wc]  lum4[b, 2qy+qx, i, j]          = P[2i+qy, 2j+qx, 0]
+  chroma [B, Hc, 8, Wc]  chroma[b, i, 2(2qy+qx)+c-1, j] = P[2i+qy, 2j+qx, c]
+
+with P = pad(image, 1), Hc = H/2+1, Wc = W/2+1. The kernel reads them as
+``ops/normalization.py::normalize_s2d`` emits them, so the serving path
+never repacks. The output is NHWC ``[B, H/2, W/2, F]``; viewed as NCHW it
+is channels_last, the layout block 1's convolution reads directly.
+
+On a CPU tensor :func:`fused_block0` runs the plain version
+(:func:`block0_plain`: unpack the planes, one float32 convolution, bias,
+PReLU, pool); on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
+
+KERNEL = CudaKernel(
+    name="fused_block0",
+    symbols={torch.float32: "frcnn_block0_f32",
+             torch.bfloat16: "frcnn_block0_bf16"},
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 4,
+    source="frcnn_tpu_torch/csrc/block0.cu",
+    replaces="frcnn_tpu/ops/pallas_block0.py:58 (_kernel of fused_block0, "
+             "pallas_call at :275)",
+)
+
+
+def pack_s2d(x):
+    """NHWC [B, H, W, 3] tensor (H, W even) -> contiguous (lum4, chroma)
+    planes on the same device."""
+    B, H, W, C = x.shape
+    if C != 3 or H % 2 or W % 2:
+        raise ValueError(f"pack_s2d needs [B, even H, even W, 3], got "
+                         f"{tuple(x.shape)}")
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    Hc, Wc = (H + 2) // 2, (W + 2) // 2
+    ph = xp.reshape(B, Hc, 2, Wc, 2, 3)
+    lum4 = ph[..., 0].permute(0, 2, 4, 1, 3).reshape(B, 4, Hc, Wc)
+    chroma = ph[..., 1:].permute(0, 1, 2, 4, 5, 3).reshape(B, Hc, 8, Wc)
+    return lum4.contiguous(), chroma.contiguous()
+
+
+def pack_s2d_np(x):
+    """:func:`pack_s2d` of a numpy batch, on the host before the device
+    transfer; returns numpy planes."""
+    return tuple(p.numpy() for p in pack_s2d(torch.from_numpy(np.asarray(x))))
+
+
+def unpack_s2d(lum4, chroma):
+    """Planes -> the padded image P as NCHW [B, 3, 2Hc, 2Wc]."""
+    B, _, Hc, Wc = lum4.shape
+    lum = lum4.reshape(B, 2, 2, Hc, Wc).permute(0, 3, 1, 4, 2)
+    lum = lum.reshape(B, 1, 2 * Hc, 2 * Wc)
+    ch = chroma.reshape(B, Hc, 2, 2, 2, Wc).permute(0, 4, 1, 2, 5, 3)
+    ch = ch.reshape(B, 2, 2 * Hc, 2 * Wc)
+    return torch.cat([lum, ch], dim=1)
+
+
+def block0_weights(w_oihw, bias, dtype):
+    """The kernel's weight layout: OIHW [F, 3, 3, 3] -> [27, F] in
+    ``dtype`` (tap (ky*3+kx)*3+c, the HWIO kernel flattened), and the bias
+    as float32 [F]."""
+    f = w_oihw.shape[0]
+    if tuple(w_oihw.shape[1:]) != (3, 3, 3):
+        raise ValueError(f"block0 takes a 3x3 conv over 3 channels, got "
+                         f"{tuple(w_oihw.shape)}")
+    w27 = w_oihw.permute(2, 3, 1, 0).reshape(27, f)
+    return w27.to(dtype).contiguous(), bias.float().contiguous()
+
+
+def block0_plain(lum4, chroma, w27, bias, slope):
+    """Plain version of the kernel: same inputs, same output. Computes in
+    float32 from the inputs as given (the compute dtype), rounds once."""
+    f = w27.shape[1]
+    p = unpack_s2d(lum4, chroma).float()
+    w = w27.float().reshape(3, 3, 3, f).permute(3, 2, 0, 1)
+    y = F.conv2d(p, w, bias.float())
+    y = torch.where(y >= 0, y, slope.float() * y)
+    y = F.max_pool2d(y, 2, 2, ceil_mode=True)
+    return y.permute(0, 2, 3, 1).to(lum4.dtype).contiguous()
+
+
+def block0_nhwc(x, w_oihw, b, slope):
+    """pool(prelu(conv3x3_same(x))) of NHWC ``x`` through
+    :func:`fused_block0` in the dtype of ``x``; returns NHWC
+    [B, H/2, W/2, F]. The parity entry around the kernel."""
+    lum4, chroma = pack_s2d(x)
+    w27, bias = block0_weights(w_oihw, b, x.dtype)
+    return fused_block0(lum4, chroma, w27, bias,
+                        torch.as_tensor(slope, dtype=torch.float32,
+                                        device=x.device).reshape(1))
+
+
+def fused_block0(lum4, chroma, w27, bias, slope):
+    """lum4 [B, 4, Hc, Wc] and chroma [B, Hc, 8, Wc] in the compute dtype
+    (float32 or bfloat16), w27 [27, F] in the same dtype (see
+    :func:`block0_weights`), bias [F] float32, slope [1] float32.
+    Returns NHWC [B, Hc-1, Wc-1, F] in the compute dtype."""
+    if lum4.device.type == "cpu":
+        return block0_plain(lum4, chroma, w27, bias, slope)
+    B, _, Hc, Wc = lum4.shape
+    f = w27.shape[1]
+    dt = lum4.dtype
+    check_cuda("lum4", lum4, dt, (B, 4, Hc, Wc))
+    check_cuda("chroma", chroma, dt, (B, Hc, 8, Wc))
+    check_cuda("w27", w27, dt, (27, f))
+    check_cuda("bias", bias, torch.float32, (f,))
+    check_cuda("slope", slope, torch.float32, (1,))
+    if f % 16:
+        raise ValueError(f"block0 kernel needs F % 16 == 0, got F={f}")
+    out = torch.empty((B, Hc - 1, Wc - 1, f), dtype=dt, device=lum4.device)
+    KERNEL.launch(dt, ptr(lum4), ptr(chroma), ptr(w27), ptr(bias),
+                  ptr(slope), ptr(out), B, Hc, Wc, f)
+    return out

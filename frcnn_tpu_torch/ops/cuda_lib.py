@@ -1,0 +1,136 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` exports ``extern "C"`` launchers that take raw device
+pointers, sizes and a ``cudaStream_t``, launch on that stream and return
+``cudaGetLastError()``. No source includes a PyTorch header, so one plain
+``nvcc`` call builds them all into one shared library in seconds; it is
+loaded with ``ctypes``. The build happens at first use, never at import,
+into ``frcnn_tpu_torch/_build/<hash of sources and flags>/`` (git-ignored):
+``nvcc`` writes a temporary name that is then moved into place, so a
+concurrent or interrupted build never leaves a half-written library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+LIB_NAME = "libfrcnn_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+NVCC_TIMEOUT_S = 240    # a cold build of the three kernels takes ~10 s
+
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one library unless a library of
+    the same sources and flags exists; returns its path."""
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    out = out_dir / LIB_NAME
+    if out.exists():
+        return out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=NVCC_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           + proc.stderr[-4000:])
+    os.replace(tmp, out)
+    print(f"[frcnn_tpu_torch] nvcc built {len(srcs)} sources into "
+          f"{out.relative_to(PACKAGE_DIR)} in {seconds:.1f} s", flush=True)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.frcnn_error_string.argtypes = [ctypes.c_int]
+        lib.frcnn_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class CudaKernel:
+    """One exported launcher of the kernel library, with its launch count.
+
+    ``launches`` counts successful launches and nothing else; ``source``
+    and ``replaces`` name the CUDA file and the TPU kernel it ports.
+    """
+
+    def __init__(self, name: str, symbols: dict, argtypes: list,
+                 source: str, replaces: str):
+        self.name = name
+        self.symbols = symbols          # dtype -> exported symbol
+        self.argtypes = argtypes + [ctypes.c_void_p]   # ... stream
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, dtype: torch.dtype, *args) -> None:
+        if dtype not in self.symbols:
+            raise TypeError(f"{self.name}: no kernel for {dtype}")
+        fn = getattr(library(), self.symbols[dtype])
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, stream)
+        if rc != 0:
+            msg = library().frcnn_error_string(rc).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg}")
+        self.launches += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype, shape):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")

@@ -1,0 +1,55 @@
+"""Batched greedy NMS on the hand-written CUDA kernel ``csrc/nms.cu``.
+
+Port of ``frcnn_tpu/ops/pallas_nms.py``: the sort and the compaction to
+``[B, max_out]`` indices stay in PyTorch around the kernel, as the JAX
+wrapper keeps them in XLA; the kernel computes the keep mask over the
+sorted order. On a CPU tensor the wrapper runs the plain version
+(``ops/nms.py::nms_keep_mask``); on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from frcnn_tpu_torch.ops import nms as plain
+from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
+
+MAX_BOXES = 2048  # shared memory: 21 bytes per box, under the 48 KB default
+
+KERNEL = CudaKernel(
+    name="nms_keep_mask",
+    symbols={torch.float32: "frcnn_nms_keep"},
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int],
+    source="frcnn_tpu_torch/csrc/nms.cu",
+    replaces="frcnn_tpu/ops/pallas_nms.py:33 (_kernel of "
+             "pallas_nms_keep_mask, pallas_call at :91)",
+)
+
+
+def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                  iou_threshold: float, max_out: int) -> torch.Tensor:
+    """boxes_sorted [B, N, 4] float32, valid_sorted [B, N] bool, both in
+    processing order. Returns the keep mask [B, N] bool."""
+    if boxes_sorted.device.type == "cpu":
+        return plain.nms_keep_mask(boxes_sorted, valid_sorted,
+                                   iou_threshold, max_out)
+    B, N = valid_sorted.shape
+    check_cuda("boxes_sorted", boxes_sorted, torch.float32, (B, N, 4))
+    check_cuda("valid_sorted", valid_sorted, torch.bool, (B, N))
+    if N > MAX_BOXES:
+        raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes, got {N}")
+    keep = torch.empty((B, N), dtype=torch.bool, device=boxes_sorted.device)
+    KERNEL.launch(torch.float32, ptr(boxes_sorted), ptr(valid_sorted),
+                  ptr(keep), B, N, float(iou_threshold), int(max_out))
+    return keep
+
+
+def cuda_nms(boxes, scores, valid, iou_threshold: float, max_out: int):
+    """Batched drop-in for ``ops/nms.py::nms``: [B, N, 4] / [B, N] inputs,
+    returns (indices [B, max_out] int32, -1 padded; valid [B, max_out])."""
+    return plain.sorted_nms(boxes.float(), scores, valid, iou_threshold,
+                            max_out, nms_keep_mask)

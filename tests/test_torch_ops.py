@@ -1,0 +1,276 @@
+"""The port's ops (each the plain version of a CUDA kernel, or the
+normalization in front of them) against the JAX package, whose Pallas
+kernels run in interpret mode as its own tests run them on the CPU.
+
+Tolerances:
+* normalization (``normalize_s2d``, ``normalize_image``): atol 1e-5
+  (float32 sums over the image in another order);
+* ``unwire_uint8``: rtol 1e-6 (a 3x3 matmul in another order);
+* NMS: indices and validity exactly equal, score ties and IoU exactly at
+  the threshold included;
+* ROI pool: exactly equal, small and overlapping bins and invalid rois
+  included;
+* block0 plain: rtol 1e-4 / atol 1e-4 in float32 against
+  ``compute_s2d_block0`` (the fused kernel at compute dtype float32);
+  against ``block0_nhwc`` (whose
+  kernel computes from bf16 inputs and rounds its output to bf16) rtol
+  1e-2 / atol 1e-2, one bf16 rounding step.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from frcnn_tpu.ops import color as jcolor
+from frcnn_tpu.ops import normalization as jnorm
+from frcnn_tpu.ops.nms import nms as j_nms
+from frcnn_tpu.detect.detector import compute_s2d_block0
+from frcnn_tpu.ops.pallas_block0 import block0_nhwc
+from frcnn_tpu.ops.pallas_block0 import pack_s2d_np as j_pack_s2d_np
+from frcnn_tpu.ops.pallas_nms import pallas_nms, pallas_nms_keep_mask
+from frcnn_tpu.ops.pallas_roi_pool import pallas_adaptive_max_pool_valid
+from frcnn_tpu.ops.roi_pool import prepare_roi_rects as j_prepare
+from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
+from frcnn_tpu_torch.ops import color as tcolor
+from frcnn_tpu_torch.ops import nms as tnms
+from frcnn_tpu_torch.ops import normalization as tnorm
+from frcnn_tpu_torch.ops import roi_pool as troi
+from tests.tiny import tiny_config
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    """Float32 comparisons run in full float32 (no TF32) on any device."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# -- normalization --------------------------------------------------------------
+
+SIZES = [(32, 48, [(32, 48), (25, 33), (10, 47)]),
+         (64, 40, [(64, 40), (61, 7), (2, 40)])]
+
+
+@pytest.mark.parametrize("H,W,true_sizes", SIZES)
+@pytest.mark.parametrize("method", ["contrastive", "none"])
+def test_normalize_s2d_and_image(H, W, true_sizes, method):
+    rng = np.random.default_rng(H)
+    B = len(true_sizes)
+    img = rng.normal(0.3, 0.2, (B, H, W, 3)).astype(np.float32)
+    th = np.array([s[0] for s in true_sizes], np.int32)
+    tw = np.array([s[1] for s in true_sizes], np.int32)
+    kw = dict(method=method, width=7, centering=True, scaling=True)
+
+    got = tnorm.normalize_image(_t(img), _t(th), _t(tw), **kw).numpy()
+    ref = jax.jit(jax.vmap(lambda x, h, w: jnorm.normalize_image(
+        x, h, w, **kw)))(img, th, tw)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-5)
+
+    lum4, chroma = j_pack_s2d_np(img)
+    gl, gc = tnorm.normalize_s2d(_t(lum4), _t(chroma), _t(th), _t(tw), **kw)
+    rl, rc = jax.jit(jax.vmap(lambda a, c, h, w: jnorm.normalize_s2d(
+        a, c, h, w, **kw)))(lum4, chroma, th, tw)
+    np.testing.assert_allclose(gl.numpy(), np.asarray(rl), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=0, atol=1e-5)
+
+
+def test_pack_s2d_and_unwire():
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (2, 10, 14, 3)).astype(np.uint8)
+    ref = jcolor.unwire_uint8(x, "yuv")
+    got = tcolor.unwire_uint8(x, "yuv")
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tcolor.unwire_uint8(_t(x), "yuv").numpy(),
+                               ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(tcolor.unwire_uint8(x, "rgb"),
+                                  jcolor.unwire_uint8(x, "rgb"))
+    for a, b in zip(block0_kernel.pack_s2d_np(ref), j_pack_s2d_np(ref)):
+        np.testing.assert_array_equal(a, b)
+    lum4, chroma = j_pack_s2d_np(ref)
+    p = block0_kernel.unpack_s2d(_t(lum4), _t(chroma)).numpy()
+    np.testing.assert_array_equal(
+        p.transpose(0, 2, 3, 1), np.pad(ref, [(0, 0), (1, 1), (1, 1), (0, 0)]))
+
+
+# -- NMS ------------------------------------------------------------------------
+
+def _nms_case(seed, B, N):
+    """Cluttered boxes with integer coordinates, duplicated boxes, equal
+    scores, pairs at IoU exactly 0.25 and 0.1, and invalid entries."""
+    rng = np.random.default_rng(seed)
+    mins = rng.integers(0, 120, (B, N, 2))
+    sizes = rng.integers(4, 50, (B, N, 2))
+    boxes = np.concatenate([mins, mins + sizes], -1).astype(np.float32)
+    boxes[:, 5::9] = boxes[:, 4::9][:, : boxes[:, 5::9].shape[1]]
+    # +1-pixel areas 100 and 400 sharing 100: IoU 0.25; 100 and 1000: 0.1
+    boxes[:, 0] = [300, 300, 309, 309]
+    boxes[:, 1] = [300, 300, 309, 339]
+    boxes[:, 2] = [400, 400, 409, 409]
+    boxes[:, 3] = [400, 400, 409, 499]
+    scores = rng.integers(0, 6, (B, N)).astype(np.float32) / 5.0
+    valid = rng.uniform(size=(B, N)) > 0.15
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("thr,max_out", [(0.25, 128), (0.1, 128),
+                                         (0.5, 7), (0.25, 1)])
+def test_nms_plain_matches_pallas_and_xla(thr, max_out):
+    B, N = 6, 96
+    boxes, scores, valid = _nms_case(int(thr * 100) + max_out, B, N)
+    jb, js, jv = jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid)
+    ref_i, ref_v = jax.jit(lambda b, s, v: pallas_nms(
+        b, s, v, thr, max_out, interpret=True))(jb, js, jv)
+    xla_i, xla_v = jax.jit(jax.vmap(
+        lambda b, s, v: j_nms(b, s, v, thr, max_out)))(jb, js, jv)
+    for fn in (tnms.nms, nms_kernel.cuda_nms):
+        got_i, got_v = fn(_t(boxes), _t(scores), _t(valid), thr, max_out)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(xla_i))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(xla_v))
+
+
+def test_nms_keep_mask_at_threshold():
+    """IoU exactly at the threshold survives, just above is suppressed;
+    the keep mask equals the Pallas kernel's on sorted input."""
+    boxes, _, _ = _nms_case(7, 2, 64)
+    valid = np.ones((2, 64), bool)
+    for thr in (0.25, 0.1, 0.2499):
+        ref = np.asarray(pallas_nms_keep_mask(
+            jnp.asarray(boxes), jnp.asarray(valid), thr, 64, interpret=True))
+        got = nms_kernel.nms_keep_mask(_t(boxes), _t(valid), thr, 64).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert got[:, 1].all() == (thr >= 0.25)
+        assert got[:, 3].all() == (thr >= 0.1)
+
+
+def test_sort_ties_and_class_offsets():
+    from frcnn_tpu.ops.nms import _sort_desc_with_ref_ties, class_offset_boxes
+
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 4, (4, 50)).astype(np.float32)
+    s[0, :] = 1.0
+    v = rng.uniform(size=(4, 50)) > 0.3
+    got = tnms.sort_desc_with_ref_ties(_t(s), _t(v)).numpy()
+    for b in range(4):
+        ref = np.asarray(_sort_desc_with_ref_ties(jnp.asarray(s[b]),
+                                                  jnp.asarray(v[b])))
+        np.testing.assert_array_equal(got[b], ref)
+    boxes = rng.uniform(0, 300, (2, 30, 4)).astype(np.float32)
+    cls = rng.integers(0, 5, (2, 30)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tnms.class_offset_boxes(_t(boxes), _t(cls), _t(v[:2, :30])).numpy(),
+        np.asarray(class_offset_boxes(jnp.asarray(boxes), jnp.asarray(cls),
+                                      jnp.asarray(v[:2, :30]))))
+
+
+# -- ROI pool -------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,H,W", [(0, 29, 50), (1, 7, 9), (2, 3, 4)])
+def test_roi_pool_plain_matches_pallas(seed, H, W):
+    rng = np.random.default_rng(seed)
+    B, C, D = 2, 16, 24
+    fm = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    fm[:, ::3, ::2, :4] = 0.5                       # ties inside bins
+    raw = np.concatenate([rng.integers(-3, W, (B, D, 1)),
+                          rng.integers(-3, H, (B, D, 1)),
+                          rng.integers(0, W + 4, (B, D, 1)),
+                          rng.integers(0, H + 4, (B, D, 1))],
+                         -1).astype(np.float32)
+    raw[:, :4] = [0, 0, 2, 3]                       # smaller than the grid
+    fw = np.full((B, 1), float(W), np.float32)
+    fh = np.full((B, 1), float(H), np.float32)
+    rects = troi.prepare_roi_rects(_t(raw), _t(fw), _t(fh)).numpy()
+    np.testing.assert_array_equal(
+        rects, np.asarray(j_prepare(jnp.asarray(raw), fw, fh)))
+    valid = rng.uniform(size=(B, D)) > 0.25
+    ref = np.asarray(pallas_adaptive_max_pool_valid(
+        jnp.asarray(fm), jnp.asarray(rects), jnp.asarray(valid), 6, 6, True))
+    for fn in (troi.adaptive_max_pool, roi_pool_kernel.adaptive_max_pool_valid):
+        got = fn(_t(fm), _t(rects), _t(valid), 6, 6).numpy()
+        np.testing.assert_array_equal(got, ref)
+    # bf16 maps: output in bf16, the same maxima
+    got16 = troi.adaptive_max_pool(_t(fm).to(torch.bfloat16), _t(rects),
+                                   _t(valid), 6, 6)
+    ref16 = np.asarray(pallas_adaptive_max_pool_valid(
+        jnp.asarray(fm, jnp.bfloat16), jnp.asarray(rects),
+        jnp.asarray(valid), 6, 6, True).astype(jnp.float32))
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(), ref16)
+
+
+# -- block0 ---------------------------------------------------------------------
+
+def test_block0_plain_matches_pallas():
+    H, W = 26, 40
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (2, H, W, 3)).astype(np.float32)
+    w = rng.normal(0, 0.2, (3, 3, 3, 64)).astype(np.float32)
+    b = rng.normal(0, 0.1, (64,)).astype(np.float32)
+    slope = np.float32(0.25)
+    w_oihw = _t(w.transpose(3, 2, 0, 1))
+    lum4, chroma = block0_kernel.pack_s2d_np(x)
+    tl, tc, ts = _t(lum4), _t(chroma), torch.tensor([slope])
+
+    # float32: the serving producer at compute dtype f32 (interpret)
+    w27, b32 = block0_kernel.block0_weights(w_oihw, _t(b), torch.float32)
+    got = block0_kernel.fused_block0(tl, tc, w27, b32, ts).numpy()
+    p0 = {"block0_conv0": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)},
+          "block0_prelu0": {"slope": jnp.asarray([slope])}}
+    cfg = tiny_config().replace(pallas_mode="interpret", input_layout="s2d")
+    ref = np.asarray(compute_s2d_block0(cfg, object(), p0, jnp.asarray(lum4),
+                                        jnp.asarray(chroma)))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+    # bf16: the drop-in block0_nhwc (bf16 inputs, bf16 output)
+    got16 = block0_kernel.block0_nhwc(_t(x).bfloat16(), w_oihw, _t(b), slope)
+    assert got16.dtype == torch.bfloat16
+    ref16 = np.asarray(block0_nhwc(jnp.asarray(x), w, b, slope,
+                                   interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(got16.float().numpy(), ref16, rtol=1e-2,
+                               atol=1e-2)
+
+
+# -- CPU dispatch of the kernel wrappers ------------------------------------------
+
+def _dispatch_case(name):
+    """(wrapper, plain version, args, kernel handle) at a small size."""
+    rng = np.random.default_rng(5)
+    if name == "nms":
+        boxes, _, _ = _nms_case(5, 2, 32)
+        args = (_t(boxes), torch.ones(2, 32, dtype=torch.bool), 0.25, 16)
+        return nms_kernel.nms_keep_mask, tnms.nms_keep_mask, args, \
+            nms_kernel.KERNEL
+    if name == "roi_pool":
+        fm = _t(rng.normal(size=(2, 9, 11, 8)).astype(np.float32))
+        rects = torch.tensor([[[0, 0, 9, 7], [2, 1, 5, 8]]] * 2,
+                             dtype=torch.float32)
+        args = (fm, rects, torch.tensor([[True, False]] * 2), 6, 6)
+        return roi_pool_kernel.adaptive_max_pool_valid, \
+            troi.adaptive_max_pool, args, roi_pool_kernel.KERNEL
+    lum4, chroma = block0_kernel.pack_s2d_np(
+        rng.normal(size=(1, 8, 12, 3)).astype(np.float32))
+    w27, bias = block0_kernel.block0_weights(
+        _t(rng.normal(size=(16, 3, 3, 3)).astype(np.float32)),
+        torch.zeros(16), torch.float32)
+    args = (_t(lum4), _t(chroma), w27, bias, torch.tensor([0.25]))
+    return block0_kernel.fused_block0, block0_kernel.block0_plain, args, \
+        block0_kernel.KERNEL
+
+
+@pytest.mark.parametrize("name", ["nms", "roi_pool", "block0"])
+def test_wrapper_runs_plain_version_on_cpu(name):
+    """On CPU tensors each wrapper returns its plain version's result
+    exactly and counts no launch."""
+    wrapper, plain, args, kernel = _dispatch_case(name)
+    before = kernel.launches
+    got = wrapper(*args)
+    assert got.device.type == "cpu"
+    assert torch.equal(got, plain(*args))
+    assert kernel.launches == before
