@@ -18,6 +18,17 @@ Phases, each printing one flushed line with its seconds:
            (torch.profiler), and the device's busy share: that device
            time over the wall time of the same batches run without the
            profiler
+  train-kernels  the two training kernels against their plain versions at
+           the train step's shapes (ROI-pool backward within its stated
+           tolerance; first-max pool backward bitwise, also against the
+           library backward), with CUDA-event times and bounds
+  train    the Trainer (vgg_small, duplo, 450x800, batch 8): one float32
+           step through the kernels against one through the plain versions
+           (losses and gradients); then bf16 steps with the library pool
+           backward and with the kernel, with the launch counts of every
+           kernel read around the kernel run
+  train-profile  device time of a bf16 train step by kernel group and the
+           busy share, as the profile phase does for detect
 
 then one JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import importlib
 import json
 import statistics
 import subprocess
@@ -47,6 +59,11 @@ ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "artifacts" / "ckpt" / "photo_partial.ckpt"
 B = 8
 IMAGE_HW = (450, 800)
+
+KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
+                  "frcnn_tpu_torch.ops.roi_pool_kernel",
+                  "frcnn_tpu_torch.ops.block0_kernel",
+                  "frcnn_tpu_torch.ops.pool_bwd_kernel")
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
 HBM_BPS = 3.35e12
@@ -105,14 +122,16 @@ def phase_env():
 def phase_build():
     from frcnn_tpu_torch.ops import cuda_lib
 
+    for m in KERNEL_MODULES:        # registers every kernel of the port
+        importlib.import_module(m)
     t = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.library()
     kernel, spill = "?", ""
     for ln in (path.parent / "nvcc.log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((k for k in ("block0_kernel", "nms_keep_kernel",
-                                       "roi_pool_kernel") if k in ln), ln)
+            k = cuda_lib.ptxas_entry(ln)
+            kernel = ln.split("'")[1] if k is None else k.name
             kernel += " bf16" if "bfloat16" in ln else ""
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -285,9 +304,10 @@ BRICK_COLORS = ((220, 40, 40), (40, 220, 40), (60, 60, 230),
 
 
 def _frames(seed: int, n: int, hw=IMAGE_HW):
-    """Seeded synthetic uint8 RGB frames: smooth noise plus a few filled
-    rectangles, shaded like toy bricks (lit gradient, lighter top face,
-    dark rim) in the six class colors."""
+    """Seeded synthetic uint8 RGB frames: smooth noise plus six filled
+    rectangles each, shaded like toy bricks (lit gradient, lighter top
+    face, dark rim) in the six class colors. Returns (frames [n, H, W, 3],
+    boxes [n, 6, 4] (x0, y0, x1, y1) float32, classes [n, 6] int32)."""
     H, W = hw
     rng = np.random.default_rng(seed)
     coarse = rng.uniform(40, 215, size=(n, H // 25 + 2, W // 25 + 2, 3))
@@ -295,11 +315,15 @@ def _frames(seed: int, n: int, hw=IMAGE_HW):
     smooth = F.interpolate(t, size=(H, W), mode="bilinear",
                            align_corners=False).permute(0, 2, 3, 1).numpy()
     img = smooth + rng.normal(0, 6, size=(n, H, W, 3))
+    boxes = np.zeros((n, 6, 4), np.float32)
+    classes = np.zeros((n, 6), np.int32)
     for i in range(n):
-        for _ in range(6):
+        for j in range(6):
             h, w = rng.integers(H // 8, H // 3), rng.integers(W // 10, W // 4)
             y, x = rng.integers(0, H - h), rng.integers(0, W - w)
-            color = np.asarray(BRICK_COLORS[rng.integers(0, 6)], np.float64)
+            classes[i, j] = rng.integers(0, 6)
+            boxes[i, j] = (x, y, x + w, y + h)
+            color = np.asarray(BRICK_COLORS[classes[i, j]], np.float64)
             g = np.linspace(0.62, 1.05, w)[None, :, None]
             body = np.broadcast_to(color * g, (h, w, 3)).copy()
             top = max(2, h // 6)
@@ -307,7 +331,7 @@ def _frames(seed: int, n: int, hw=IMAGE_HW):
             body[[0, -1]] *= 0.55
             body[:, [0, -1]] *= 0.55
             img[i, y:y + h, x:x + w] = body
-    return np.clip(img, 0, 255).astype(np.uint8)
+    return np.clip(img, 0, 255).astype(np.uint8), boxes, classes
 
 
 def _load_models():
@@ -362,7 +386,7 @@ def phase_detect(kernels):
     modules = {"nms_keep_mask": nms_kernel, "roi_pool": roi_pool_kernel,
                "fused_block0": block0_kernel}
     cfg, pnet, cnet = _load_models()
-    frames = _frames(1, B)
+    frames, _, _ = _frames(1, B)
     true_hw = np.tile(np.asarray([IMAGE_HW], np.int32), (B, 1))
 
     # float32 through the kernels == float32 through the plain versions
@@ -435,38 +459,42 @@ def phase_detect(kernels):
     for k in kernels:
         kernels[k]["launches"] = launches[k]
     phase_profile(det, (lum4, chroma), hw_dev)
-    return modules
 
 
 PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
     ("block0_kernel", "block0 kernel"), ("nms_keep_kernel", "nms kernel"),
-    ("roi_pool_kernel", "roi_pool kernel"), ("conv", "convolution"),
-    ("fprop", "convolution"), ("dgrad", "convolution"),
+    ("roi_pool_bwd_kernel", "roi_pool_bwd kernel"),
+    ("pool_bwd_kernel", "pool_bwd kernel"),
+    ("roi_pool_kernel", "roi_pool kernel"), ("max_pool", "max pool"),
+    ("conv", "convolution"), ("fprop", "convolution"),
+    ("dgrad", "convolution"), ("wgrad", "convolution"),
     ("gemm", "matmul"), ("sort", "sort"), ("Sort", "sort"),
+    ("foreach", "optimizer (foreach)"), ("index", "index/scatter"),
+    ("scatter", "index/scatter"), ("gather", "index/scatter"),
     ("reduce", "reductions"), ("elementwise", "elementwise"),
 )
 
 
-def phase_profile(det, planes, hw_dev, n_calls: int = 3):
-    """Device time of the bf16 serving run by kernel group
-    (torch.profiler), and the busy share of the device: that device time
-    over the wall time of the same batches run without the profiler."""
+def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
+    """Device time of ``fn()`` by kernel group (torch.profiler), and the
+    busy share of the device: that device time over the wall time of the
+    same calls run without the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t = time.perf_counter()
-    det.detect(planes, hw_dev)
+    fn()
     torch.cuda.synchronize()
     t_run = time.perf_counter()
     for _ in range(n_calls):
-        det.detect(planes, hw_dev)
+        fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t_run) * 1e6 / n_calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_run = time.perf_counter()
         for _ in range(n_calls):
-            det.detect(planes, hw_dev)
+            fn()
         torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t_run) * 1e6 / n_calls
     groups, kernels, n_launch = {}, {}, 0
@@ -480,20 +508,299 @@ def phase_profile(det, planes, hw_dev, n_calls: int = 3):
         kernels[e.name] = kernels.get(e.name, 0.0) + us
     busy = sum(groups.values())
     if busy == 0:
-        log("profile", "torch.profiler recorded no device time: not "
-            "measured", t)
+        log(phase, "torch.profiler recorded no device time: not measured", t)
         return
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
-        print(f"[profile] {g}: {us / 1e3:.3f} ms/batch "
+        print(f"[{phase}] {g}: {us / 1e3:.3f} ms/{unit} "
               f"({100 * us / busy:.1f}% of device time)", flush=True)
     for name, us in sorted(kernels.items(), key=lambda x: -x[1])[:8]:
-        print(f"[profile] top kernel {us / 1e3:.3f} ms/batch: {name[:200]}",
+        print(f"[{phase}] top kernel {us / 1e3:.3f} ms/{unit}: {name[:200]}",
               flush=True)
-    log("profile", f"bf16 serving B={B}: {busy / 1e3:.3f} ms/batch of device "
-        f"kernels; {wall_us / 1e3:.3f} ms/batch wall without the profiler "
-        f"(busy share {100 * busy / wall_us:.1f}%), {prof_wall_us / 1e3:.3f} "
-        f"ms/batch under it; {n_launch / n_calls:.0f} kernel launches per "
-        f"batch", t)
+    log(phase, f"{what}: {busy / 1e3:.3f} ms/{unit} of device kernels; "
+        f"{wall_us / 1e3:.3f} ms/{unit} wall without the profiler (busy "
+        f"share {100 * busy / wall_us:.1f}%), {prof_wall_us / 1e3:.3f} "
+        f"ms/{unit} under it; {n_launch / n_calls:.0f} kernel launches per "
+        f"{unit}", t)
+
+
+def phase_profile(det, planes, hw_dev):
+    profile_run("profile", f"bf16 serving B={B}",
+                lambda: det.detect(planes, hw_dev), "batch")
+
+
+# -- train kernels --------------------------------------------------------------
+
+FM_HWC = (29, 50, 384)       # the train step's feature map at 450x800
+TRAIN_ROIS = 224             # max_positives + max_negatives + max_nearby
+POOL_INPUTS = ((64, 450, 800), (128, 225, 400), (256, 113, 200),
+               (384, 57, 100))   # (C, H, W) into the four backbone pools
+ODD_W_INPUT = (384, 57, 125)     # block 3 at the 450x1000 bucket
+
+
+def _ulps(a, b):
+    """Largest distance in bf16 units in the last place (same-sign
+    values; a sign change counts as far apart)."""
+    ai = a.view(torch.int16).to(torch.int32)
+    bi = b.view(torch.int16).to(torch.int32)
+    return int((ai - bi).abs().max())
+
+
+def check_roi_pool_bwd(gen):
+    from frcnn_tpu_torch.ops import roi_pool as plain
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    t = time.perf_counter()
+    H, W, C = FM_HWC
+    D, k = TRAIN_ROIS, 6
+    # four levels: ties inside bins and between overlapping bins
+    fm32 = (torch.randint(0, 4, (B, H, W, C), generator=gen).float()
+            / 4).cuda()
+    p0 = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H])
+    ext = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H]) * 0.6
+    raw = torch.cat([p0 - 2, p0 + ext], dim=-1).floor()
+    rects = plain.prepare_roi_rects(raw, float(W), float(H)).cuda()
+    valid = (torch.rand(B, D, generator=gen) < 96 / D).cuda()
+    g32 = torch.randn(B, D, k, k, C, generator=gen).cuda()
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        fm, g = fm32.to(dt), g32.to(dt)
+        got = K.adaptive_max_pool_valid_backward(fm, rects, valid, g, k, k)
+        torch.cuda.synchronize()
+        ref = plain.adaptive_max_pool_backward(fm, rects, valid, g, k, k)
+        err = float((got.float() - ref.float()).abs().max())
+        if dt == torch.float32:
+            # the kernel and the plain version sum in the same order
+            # (rois, then bins): equal up to float32 rounding, atol 1e-6
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+            tol = "atol 1e-6"
+        else:
+            # both round the same float32 sums to bf16 once: one ulp
+            if _ulps(got, ref) > 1:
+                raise AssertionError(f"roi_pool_bwd bf16: {_ulps(got, ref)} "
+                                     f"ulps apart")
+            tol = "one bf16 ulp"
+        ms = time_ms(lambda: K.adaptive_max_pool_valid_backward(
+            fm, rects, valid, g, k, k))
+        pms = time_ms(lambda: plain.adaptive_max_pool_backward(
+            fm, rects, valid, g, k, k), reps=3, warmup=1)
+        n_valid = int(valid.sum())
+        # bytes: fm read, the valid rois' g read, dfm written; operations:
+        # two compares per window cell of the forward's recompute
+        r = rects.to(torch.int64)[valid].cpu()
+        cells = float(((r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])).sum())
+        n_bytes = (2 * fm.numel() + n_valid * k * k * C) * fm.element_size() \
+            + rects.numel() * 4 + valid.numel()
+        bms, by = bound_ms(n_bytes, 2.0 * cells * C, dt)
+        res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                   "bound_by": by, "max_abs_err": err, "library_ms": None}
+        log("train-kernels", f"roi_pool_bwd {str(dt)[6:]} fm {tuple(fm.shape)}"
+            f", {D} roi slots/image, {n_valid} valid: max abs err {err:.3g} "
+            f"({tol}); kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
+            f"{bms:.5f} ms ({by}); no single PyTorch call computes it", t)
+    return res[torch.bfloat16]
+
+
+def check_pool_bwd(gen):
+    from frcnn_tpu_torch.ops import pool_bwd as plain
+    from frcnn_tpu_torch.ops import pool_bwd_kernel as K
+
+    t = time.perf_counter()
+    lib_bwd = torch.ops.aten.max_pool2d_with_indices_backward
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": 0.0}
+    for (C, H, W) in POOL_INPUTS + (ODD_W_INPUT,):
+        for dt in (torch.bfloat16, torch.float32):
+            # three levels: ties in most windows, routed to the first max
+            x = (torch.randint(0, 3, (B, C, H, W), generator=gen)
+                 .to(dt).cuda().contiguous(memory_format=torch.channels_last))
+            y, idx = F.max_pool2d(x, 2, 2, ceil_mode=True,
+                                  return_indices=True)
+            g = torch.randn(y.shape, generator=gen).to(dt).cuda() \
+                .contiguous(memory_format=torch.channels_last)
+            xh, gh = x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1)
+            got = K.ceil_max_pool_2x2_bwd(xh, gh)
+            torch.cuda.synchronize()
+            ref = plain.ceil_max_pool_2x2_bwd(xh, gh)
+            lib = lib_bwd(g, x, [2, 2], [2, 2], [0, 0], [1, 1], True, idx)
+            lib = lib.permute(0, 2, 3, 1)
+            for name, other in (("plain", ref), ("library", lib)):
+                if not torch.equal(got, other):
+                    raise AssertionError(
+                        f"pool_bwd {str(dt)[6:]} {(B, H, W, C)}: kernel and "
+                        f"{name} backward differ in "
+                        f"{int((got != other).sum())} places")
+            if dt != torch.bfloat16:
+                continue
+            ms = time_ms(lambda: K.ceil_max_pool_2x2_bwd(xh, gh))
+            pms = time_ms(lambda: plain.ceil_max_pool_2x2_bwd(xh, gh),
+                          reps=5)
+            lms = time_ms(lambda: lib_bwd(g, x, [2, 2], [2, 2], [0, 0],
+                                          [1, 1], True, idx))
+            bms, by = bound_ms((2 * x.numel() + g.numel()) * 2,
+                               3.0 * x.numel(), dt)
+            log("train-kernels", f"pool_bwd x {(B, H, W, C)}: bitwise equal "
+                f"to the plain and library backwards (bf16 and f32); bf16 "
+                f"kernel {ms:.4f} ms, plain {pms:.3f} ms, max_pool2d backward "
+                f"{lms:.4f} ms, bound {bms:.5f} ms ({by})", t)
+            if (C, H, W) != ODD_W_INPUT:     # the 450x800 step's four pools
+                tot["ms"] += ms
+                tot["plain_ms"] += pms
+                tot["library_ms"] += lms
+                tot["bound_ms"] += bms
+                tot["bound_by"] = by
+            del x, y, idx, g, got, ref, lib
+    torch.cuda.empty_cache()
+    log("train-kernels", f"pool_bwd over the four pools of a 450x800 step "
+        f"(bf16): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.3f} ms, "
+        f"max_pool2d backward {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.5f} ms", t)
+    return tot
+
+
+def phase_train_kernels():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    return {"roi_pool_bwd": check_roi_pool_bwd(gen),
+            "pool_bwd": check_pool_bwd(gen)}
+
+
+# -- train ----------------------------------------------------------------------
+
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+
+
+def _train_config(compute: str):
+    from frcnn_tpu_torch.config import duplo_config
+
+    base = duplo_config()
+    return base.replace(
+        pallas_mode="on", compute_dtype=compute,
+        shapes=dataclasses.replace(base.shapes, image_hw=IMAGE_HW,
+                                   images_per_step=B))
+
+
+def _train_batch(cfg, seed: int):
+    """A TrainBatch on the card: the seeded uint8 frames (unwired by the
+    objective), their six shaded rectangles as gt boxes and classes."""
+    from frcnn_tpu_torch.train.objective import TrainBatch
+
+    frames, boxes, classes = _frames(seed, B)
+    G = cfg.shapes.max_gt
+    gt = np.zeros((B, G, 4), np.float32)
+    gc = np.zeros((B, G), np.int32)
+    gm = np.zeros((B, G), bool)
+    gt[:, :6], gc[:, :6], gm[:, :6] = boxes, classes, True
+    hw = np.tile(np.asarray([IMAGE_HW], np.int32), (B, 1))
+    return TrainBatch(frames, hw, gt, gc, gm, np.zeros(B, bool)).to("cuda")
+
+
+def _check_f32_step(batch):
+    """One float32 step through the kernels against one through the plain
+    versions: same parameters, batch and generator seed, so the labels and
+    dropout masks are the same draws."""
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_config("float32")
+    runs = {}
+    for mode, vjp in (("on", "kernel"), ("off", "library")):
+        tr = Trainer(cfg.replace(pallas_mode=mode), device="cuda", seed=0,
+                     pool_vjp=vjp)
+        total, (bs, metrics), grads = tr.compute_gradients(batch)
+        torch.cuda.synchronize()
+        runs[mode] = (total, bs, metrics, grads)
+        del tr
+    (_, bs_k, m_k, g_k), (_, bs_p, m_p, g_p) = runs["on"], runs["off"]
+    for k in ("pcls", "preg", "dcls", "dreg", "cls_count", "reg_count"):
+        torch.testing.assert_close(m_k[k], m_p[k], rtol=1e-5, atol=0)
+    worst, worst_name = 0.0, next(iter(g_p))
+    for name in g_p:
+        a, b = g_k[name], g_p[name]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"train f32: non-finite gradient {name}")
+        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    for name in bs_p:
+        torch.testing.assert_close(bs_k[name], bs_p[name], rtol=1e-5,
+                                   atol=1e-7)
+    # limit: float32 convolutions and matmuls may sum in another order
+    # in the two runs (cuDNN/cuBLAS algorithms); the ported kernels
+    # themselves route bitwise
+    limit = 1e-4
+    if worst > limit:
+        raise AssertionError(f"train f32: gradient {worst_name} relative "
+                             f"error {worst:.3g} over the {limit} limit")
+    losses = ", ".join(f"{k} {float(m_k[k]):.6g}"
+                       for k in ("pcls", "preg", "dcls", "dreg"))
+    log("train", f"float32 B={B}: kernels == plain versions: losses "
+        f"{losses} (rtol 1e-5), cls_count {float(m_k['cls_count']):.0f}, reg_count "
+        f"{float(m_k['reg_count']):.0f}; largest relative gradient error "
+        f"{worst:.3g} ({worst_name}; limit {limit})", t)
+
+
+def phase_train(kernels):
+    from frcnn_tpu_torch.ops import pool_bwd_kernel, roi_pool_kernel
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    counted = {"roi_pool": roi_pool_kernel.KERNEL,
+               "roi_pool_bwd": roi_pool_kernel.BWD_KERNEL,
+               "pool_bwd": pool_bwd_kernel.KERNEL}
+    cfg = _train_config("float32")
+    batch = _train_batch(cfg, 2)
+    _check_f32_step(batch)
+    torch.cuda.empty_cache()
+
+    cfg = _train_config("bfloat16")
+    steps_ms, trainer = {}, None
+    for vjp in ("library", "kernel"):
+        t = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", seed=0, pool_vjp=vjp)
+        for _ in range(TRAIN_WARMUP):
+            trainer.run_step(batch)
+        torch.cuda.synchronize()
+        for k in counted.values():
+            k.launches = 0
+        pool_bwd_kernel.KERNEL.grad_copies = 0
+        t_run = time.perf_counter()
+        ms = [trainer.run_step(batch) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) / TRAIN_STEPS
+        launches = {k: v.launches for k, v in counted.items()}
+        steps_ms[vjp] = wall * 1e3
+        for m in ms:
+            if m["skipped"] != 0 or not all(
+                    np.isfinite(m[k]) for k in ("pcls", "preg", "dcls",
+                                                "dreg")):
+                raise AssertionError(f"bf16 train ({vjp}): skipped or "
+                                     f"non-finite step {m}")
+        want = {"roi_pool": TRAIN_STEPS, "roi_pool_bwd": TRAIN_STEPS,
+                "pool_bwd": 4 * TRAIN_STEPS if vjp == "kernel" else 0}
+        if launches != want:
+            raise AssertionError(f"bf16 train ({vjp}): launches {launches}, "
+                                 f"expected {want}")
+        last = ms[-1]
+        log("train", f"bf16 B={B} {IMAGE_HW[0]}x{IMAGE_HW[1]}, pool "
+            f"backward {vjp}: {wall * 1e3:.2f} ms/step, {B / wall:.1f} img/s "
+            f"over {TRAIN_STEPS} steps (after {TRAIN_WARMUP}); launches per "
+            f"step {({k: v / TRAIN_STEPS for k, v in launches.items()})}; "
+            f"cotangent layout copies {pool_bwd_kernel.KERNEL.grad_copies}; "
+            f"last step pcls {last['pcls']:.4f} preg {last['preg']:.4f} dcls "
+            f"{last['dcls']:.4f} dreg {last['dreg']:.4f}, cls_count "
+            f"{last['cls_count']:.0f}, reg_count {last['reg_count']:.0f}, "
+            f"skipped 0 in every step", t)
+        if vjp == "kernel":
+            for k in ("roi_pool_bwd", "pool_bwd"):
+                kernels[k]["launches"] = launches[k]
+        else:
+            del trainer
+            torch.cuda.empty_cache()
+    profile_run("train-profile", f"bf16 train step B={B}, pool backward "
+                f"kernel", lambda: trainer.run_step(batch), "step")
+    return steps_ms
 
 
 def main() -> int:
@@ -501,12 +808,16 @@ def main() -> int:
     name, smi = phase_env()
     phase_build()
     kernels = phase_kernels()
-    modules = phase_detect(kernels)
+    phase_detect(kernels)
+    kernels.update(phase_train_kernels())
+    phase_train(kernels)
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
     line = []
-    for k, m in modules.items():
-        r = kernels[k]
-        line.append({"name": k, "route": "cuda", "source": m.KERNEL.source,
-                     "replaces": m.KERNEL.replaces,
+    for k, r in kernels.items():
+        kern = REGISTRY[k]
+        line.append({"name": k, "route": "cuda", "source": kern.source,
+                     "replaces": kern.replaces,
                      "launches": r["launches"],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

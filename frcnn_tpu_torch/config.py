@@ -8,7 +8,8 @@ package. Fields that select TPU code paths (``pallas_mode``,
 ``s2d_block0_layout``, ``remat``) are carried for schema compatibility; the
 port reads ``pallas_mode`` ("off" runs the plain PyTorch versions of the
 kernels everywhere, anything else the hand-written CUDA kernels on CUDA
-tensors) and ``input_layout``.
+tensors) and ``input_layout``; the training objective refuses ``remat``
+(not ported yet).
 """
 
 from __future__ import annotations

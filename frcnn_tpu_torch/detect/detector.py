@@ -66,7 +66,7 @@ class DetectionResult(NamedTuple):
     proposals_valid: torch.Tensor  # [B, D] bool
 
 
-def _take(x, idx):
+def take_rows(x, idx):
     """Gather rows ``idx`` [B, K] along axis 1 of ``x`` [B, N, ...]."""
     idx = idx.long()
     if x.dim() == 2:
@@ -171,8 +171,8 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
             return _cut_sum(decoded, score, keep)
 
         top_idx, top_valid = select_proposals(keep, score, K)
-        top_boxes = _take(decoded, top_idx)
-        top_scores = torch.where(top_valid, _take(score, top_idx),
+        top_boxes = take_rows(decoded, top_idx)
+        top_scores = torch.where(top_valid, take_rows(score, top_idx),
                                  torch.full_like(top_valid, -torch.inf,
                                                  dtype=torch.float32))
         if stop_after == "select":
@@ -180,9 +180,9 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
 
         nms_idx, prop_valid = batched_nms(top_boxes, top_scores, top_valid,
                                           PROPOSAL_NMS_IOU, D)
-        cand = _take(top_idx, nms_idx.clamp(min=0))
-        prop_boxes = _take(decoded, cand)
-        prop_score = _take(p_fg, cand)
+        cand = take_rows(top_idx, nms_idx.clamp(min=0))
+        prop_boxes = take_rows(decoded, cand)
+        prop_score = take_rows(p_fg, cand)
         if stop_after == "nms":
             return _cut_sum(prop_boxes, prop_score, nms_idx, prop_valid)
 
@@ -210,14 +210,14 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         vb = f_valid[:, :, None]
         zf = torch.zeros((), device=refined.device)
         return DetectionResult(
-            boxes=torch.where(vb, _take(refined, f_src), zf),
-            proposal_boxes=torch.where(vb, _take(prop_boxes, f_src), zf),
-            classes=torch.where(f_valid, _take(cls, f_src),
+            boxes=torch.where(vb, take_rows(refined, f_src), zf),
+            proposal_boxes=torch.where(vb, take_rows(prop_boxes, f_src), zf),
+            classes=torch.where(f_valid, take_rows(cls, f_src),
                                 torch.zeros((), dtype=cls.dtype,
                                             device=cls.device)
                                 ).to(torch.int32),
-            confidence=torch.where(f_valid, _take(conf, f_src), zf),
-            fg_score=torch.where(f_valid, _take(prop_score, f_src), zf),
+            confidence=torch.where(f_valid, take_rows(conf, f_src), zf),
+            fg_score=torch.where(f_valid, take_rows(prop_score, f_src), zf),
             valid=f_valid,
             proposals=torch.where(prop_valid[:, :, None], prop_boxes, zf),
             proposals_valid=prop_valid,

@@ -38,12 +38,14 @@ class AnchorGenerator:
     anchor map for the padded bucket.
     """
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, image_hw: Tuple[int, int] = None):
+        """``image_hw`` overrides the bucket (default: the config's primary
+        bucket), as for the portrait bucket's anchor field."""
         self.cfg = cfg
         model = cfg.model
         self.scales = cfg.scales
-        H, W = cfg.shapes.image_hw
-        self.image_hw = (H, W)
+        H, W = image_hw if image_hw is not None else cfg.shapes.image_hw
+        self.image_hw = (int(H), int(W))
         self.tap_localizers = [
             Localizer(layer_infos_for_tap(model, i))
             for i in range(len(cfg.scales))
@@ -131,3 +133,17 @@ class AnchorGenerator:
             w_t, h_t = loc.feature_map_size_t(tw, th)
             parts.append((fy[s:e] < h_t[..., None]) & (fx[s:e] < w_t[..., None]))
         return torch.cat(parts, dim=-1)
+
+    def inside_image_mask(self, true_h, true_w, boxes=None):
+        """Anchors fully inside the true image rect, max edge closed (the
+        clip rect of ``findRangesXY``, ``Anchors.lua:105-110``).
+
+        ``true_h``/``true_w``: [B] tensors (or scalars); ``boxes``: the
+        anchor boxes as a tensor (default: :attr:`boxes` on the device of
+        ``true_h``). Returns [B, A] bool (or [A])."""
+        th = torch.as_tensor(true_h)
+        tw = torch.as_tensor(true_w, device=th.device)
+        b = torch.as_tensor(self.boxes if boxes is None else boxes,
+                            device=th.device)
+        return ((b[:, 0] >= 0) & (b[:, 1] >= 0)
+                & (b[:, 2] <= tw[..., None]) & (b[:, 3] <= th[..., None]))

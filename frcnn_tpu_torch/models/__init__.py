@@ -1,1 +1,1 @@
-"""Proposal and classification networks (eval only)."""
+"""Proposal and classification networks."""

@@ -1,9 +1,9 @@
 """Classification head: MLP over pooled ROI features with a 4-dim box
 refinement head and a log-softmax class head.
 
-Port of the JAX package's ``models/cnet.py`` (eval only): Linear ->
-(BatchNorm) -> PReLU per hidden layer, then ``Linear(prev, 4)`` and
-``Linear(prev, C+1)`` + LogSoftMax. The input is the pooled ROI
+Port of the JAX package's ``models/cnet.py``: Linear -> (BatchNorm) ->
+PReLU -> (Dropout, in training) per hidden layer, then ``Linear(prev, 4)``
+and ``Linear(prev, C+1)`` + LogSoftMax. The input is the pooled ROI
 ``[B, D, kh, kw, C]`` flattened in (y, x, c) order, the order of the
 JAX package's fc0 kernel rows. It computes in the dtype of its Linear
 parameters, and batch norm in float32 (see ``models/pnet.py``). Linear and
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from frcnn_tpu_torch.config import ModelConfig
-from frcnn_tpu_torch.models.layers import MaskedBatchNorm, prelu
+from frcnn_tpu_torch.models.layers import MaskedBatchNorm, dropout, prelu
 
 
 class ClassificationNet(nn.Module):
@@ -35,15 +35,31 @@ class ClassificationNet(nn.Module):
         self.reg_head = skip_init(nn.Linear, n, 4)
         self.cls_head = skip_init(nn.Linear, n, num_classes_with_bg)
 
-    def forward(self, x):
+    def forward(self, x, mask=None, train: bool = False, generator=None):
         """x: [..., R, D] -> (reg [..., R, 4] float32, log_probs
-        [..., R, C+1] float32)."""
+        [..., R, C+1] float32).
+
+        ``train``: batch norm over the valid rows (``mask`` [..., R], None =
+        all valid) of each leading group, and dropout with masks from
+        ``generator``; then a third output, the new batch-norm running
+        statistics ``{"bn<i>.running_mean": ..., "bn<i>.running_var": ...}``
+        (the buffers themselves are not written)."""
         x = x.to(self.reg_head.weight.dtype)
+        new_stats = {}
         for li, spec in enumerate(self.model_cfg.class_layers):
             x = getattr(self, f"fc{li}")(x)
             if spec.batch_norm:
-                x = getattr(self, f"bn{li}")(x)
+                bn = getattr(self, f"bn{li}")
+                if train:
+                    x, (new_stats[f"bn{li}.running_mean"],
+                        new_stats[f"bn{li}.running_var"]) = bn(x, mask, True)
+                else:
+                    x = bn(x)
             x = prelu(x, getattr(self, f"prelu{li}").weight)
-        reg = self.reg_head(x)
-        logits = self.cls_head(x)
-        return reg.float(), F.log_softmax(logits.float(), dim=-1)
+            if train:
+                x = dropout(x, spec.dropout, generator)
+        reg = self.reg_head(x).float()
+        log_probs = F.log_softmax(self.cls_head(x).float(), dim=-1)
+        if train:
+            return reg, log_probs, new_stats
+        return reg, log_probs

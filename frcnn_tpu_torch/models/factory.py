@@ -27,10 +27,16 @@ def cnet_input_dim(cfg: Config) -> int:
             * cfg.model.layers[-1].filters)
 
 
-def create_models(cfg: Config) -> Tuple[ProposalNet, ClassificationNet]:
+COMPUTE_MODULES = (nn.Conv2d, nn.Linear, nn.PReLU)
+
+
+def create_models(cfg: Config, pool_vjp: str = "library"
+                  ) -> Tuple[ProposalNet, ClassificationNet]:
     """pnet and cnet in eval mode and float32, their weights not yet
-    initialised (load a state dict, or use :func:`init_models`)."""
-    pnet = ProposalNet(cfg.model)
+    initialised (load a state dict, or use :func:`init_models`).
+    ``pool_vjp``: the backward of pnet's pools ("library" or "kernel", see
+    ``models/pnet.py``; the JAX package's ``FRCNN_POOL_VJP``)."""
+    pnet = ProposalNet(cfg.model, pool_vjp=pool_vjp)
     cnet = ClassificationNet(cfg.model, cfg.num_classes_with_bg,
                              cnet_input_dim(cfg))
     return pnet.eval(), cnet.eval()
@@ -42,18 +48,37 @@ def for_compute(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
     float32, as in the flax modules; ``module`` itself is left as it is."""
     m = copy.deepcopy(module).to(device).eval()
     for sub in m.modules():
-        if isinstance(sub, (nn.Conv2d, nn.Linear, nn.PReLU)):
+        if isinstance(sub, COMPUTE_MODULES):
             sub.to(dtype)
     return m
 
 
+def compute_param_names(module: nn.Module) -> frozenset:
+    """Names (as in ``named_parameters``) of the conv, linear and PReLU
+    parameters of ``module``: those that compute in the compute dtype."""
+    return frozenset(
+        f"{prefix}.{name}" if prefix else name
+        for prefix, sub in module.named_modules()
+        if isinstance(sub, COMPUTE_MODULES)
+        for name, _ in sub.named_parameters(recurse=False))
+
+
+def cast_for_compute(params: dict, names: frozenset, dtype) -> dict:
+    """``params`` with the entries in ``names`` cast to ``dtype``, the rest
+    (batch norm) as they are. The cast is differentiable, so a step that
+    computes with the result sends float32 gradients to float32 masters
+    (what flax's ``param_dtype=float32, dtype=bfloat16`` does per call)."""
+    return {k: v.to(dtype) if k in names else v for k, v in params.items()}
+
+
 @torch.no_grad()
-def init_models(cfg: Config, generator: torch.Generator):
+def init_models(cfg: Config, generator: torch.Generator,
+                pool_vjp: str = "library"):
     """Seeded initialisation: convs normal(0, sqrt(2/(kh*kw*out))) (MSRA
     fan-out, ``models/model_utilities.lua:60-71``) with zero bias; linears
     uniform(+-1/sqrt(fan_in)) for weight and bias (torch default); PReLU
     slopes 0.25; batch norm identity. Draws from ``generator`` (CPU)."""
-    pnet, cnet = create_models(cfg)
+    pnet, cnet = create_models(cfg, pool_vjp)
     for m in [*pnet.modules(), *cnet.modules()]:
         if isinstance(m, torch.nn.PReLU):
             m.weight.fill_(0.25)

@@ -1,9 +1,15 @@
 """Proposal network: VGG-style backbone + 4 multi-scale anchor heads.
 
-Port of the JAX package's ``models/pnet.py`` (eval only). Block ``bi`` is
-``conv_steps`` 3x3/1/1 convolutions with PReLU and a 2x2/2 ceil max pool;
-anchor head ``i`` is a kxk valid conv + PReLU + 1x1 conv to 18 channels on
-the output of block ``anchor_nets[i].input``.
+Port of the JAX package's ``models/pnet.py``. Block ``bi`` is
+``conv_steps`` 3x3/1/1 convolutions with PReLU (in training a
+SpatialDropout after the block's first conv only, ``model_utilities.lua:22``)
+and a 2x2/2 ceil max pool; anchor head ``i`` is a kxk valid conv + PReLU +
+1x1 conv to 18 channels on the output of block ``anchor_nets[i].input``.
+
+``pool_vjp`` picks the pools' backward: ``"library"`` is ``F.max_pool2d``'s
+own (the JAX package's default ``"xla"``), ``"kernel"`` the first-max CUDA
+kernel of ``ops/pool_bwd_kernel.py`` (its ``"pallas"``); the forward values
+are the same either way.
 
 The module computes in the dtype of its parameters: float32 as built,
 or the compute dtype once ``models/factory.py::for_compute`` has cast a
@@ -21,15 +27,26 @@ import torch.nn as nn
 from torch.nn.utils import skip_init
 
 from frcnn_tpu_torch.config import ModelConfig
-from frcnn_tpu_torch.models.layers import ceil_max_pool_2x2, prelu
+from frcnn_tpu_torch.models.layers import (
+    ceil_max_pool_2x2,
+    prelu,
+    spatial_dropout,
+)
+from frcnn_tpu_torch.ops.pool_bwd_kernel import ceil_max_pool_2x2_firstmax
 
 ANCHOR_CHANNELS = 3 * (2 + 4)  # 3 aspects x (2 cls + 4 reg) = 18
+POOL_VJPS = {"library": ceil_max_pool_2x2,
+             "kernel": ceil_max_pool_2x2_firstmax}
 
 
 class ProposalNet(nn.Module):
-    def __init__(self, model_cfg: ModelConfig):
+    def __init__(self, model_cfg: ModelConfig, pool_vjp: str = "library"):
         super().__init__()
+        if pool_vjp not in POOL_VJPS:
+            raise ValueError(f"pool_vjp must be one of {sorted(POOL_VJPS)}, "
+                             f"got {pool_vjp!r}")
         self.model_cfg = model_cfg
+        self.pool_vjp = pool_vjp
         cin = 3
         for bi, spec in enumerate(model_cfg.layers):
             for si in range(spec.conv_steps):
@@ -46,13 +63,16 @@ class ProposalNet(nn.Module):
             self.add_module(f"anchor{ai}_out", skip_init(
                 nn.Conv2d, aspec.n, ANCHOR_CHANNELS, 1))
 
-    def forward(self, x, block0_out=None):
+    def forward(self, x, block0_out=None, train: bool = False,
+                generator=None):
         """x: NHWC [B, H, W, 3] -> (anchor maps [B, Hi, Wi, 18] each,
         feature map [B, Hf, Wf, C_last]), in the compute dtype.
 
         ``block0_out``: NHWC output of the first block (from the fused
-        block0 kernel); block 0's layers are then skipped."""
+        block0 kernel); block 0's layers are then skipped. ``train``: apply
+        the spatial dropouts, with masks from ``generator``."""
         dt = self.block0_conv0.weight.dtype
+        pool = POOL_VJPS[self.pool_vjp]
         if block0_out is not None:
             h = block0_out.to(dt).permute(0, 3, 1, 2)
             block_outputs = [h]
@@ -65,7 +85,9 @@ class ProposalNet(nn.Module):
             for si in range(spec.conv_steps):
                 h = getattr(self, f"block{bi}_conv{si}")(h)
                 h = prelu(h, getattr(self, f"block{bi}_prelu{si}").weight)
-            h = ceil_max_pool_2x2(h)
+                if train and si == 0:
+                    h = spatial_dropout(h, spec.dropout, generator)
+            h = pool(h)
             block_outputs.append(h)
 
         anchor_maps = []

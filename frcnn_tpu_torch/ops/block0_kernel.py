@@ -29,6 +29,7 @@ from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel(
     name="fused_block0",
+    entry="block0_kernel",
     symbols={torch.float32: "frcnn_block0_f32",
              torch.bfloat16: "frcnn_block0_bf16"},
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 4,

@@ -31,9 +31,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-NVCC_TIMEOUT_S = 240    # a cold build of the three kernels takes ~10 s
+NVCC_TIMEOUT_S = 240    # a cold build of the kernels takes ~10 s
 
 _lib = None
+REGISTRY = {}           # name -> CudaKernel, filled as wrapper modules import
 
 
 def _nvcc() -> str:
@@ -96,12 +97,18 @@ class CudaKernel:
     """One exported launcher of the kernel library, with its launch count.
 
     ``launches`` counts successful launches and nothing else; ``source``
-    and ``replaces`` name the CUDA file and the TPU kernel it ports.
+    and ``replaces`` name the CUDA file and the TPU kernel it ports;
+    ``entry`` is the ``__global__`` function's name (how ``nvcc -Xptxas -v``
+    reports its registers). Every instance is listed in :data:`REGISTRY`.
     """
 
     def __init__(self, name: str, symbols: dict, argtypes: list,
-                 source: str, replaces: str):
+                 source: str, replaces: str, entry: str):
+        if name in REGISTRY:
+            raise ValueError(f"kernel {name!r} is registered twice")
+        REGISTRY[name] = self
         self.name = name
+        self.entry = entry
         self.symbols = symbols          # dtype -> exported symbol
         self.argtypes = argtypes + [ctypes.c_void_p]   # ... stream
         self.source = source
@@ -134,3 +141,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
+
+
+def ptxas_entry(line: str):
+    """The registered kernel that an ``nvcc -Xptxas -v`` line about an
+    entry function names (its Itanium-mangled identifier, length-prefixed,
+    so ``pool_bwd_kernel`` never matches ``roi_pool_bwd_kernel``), or
+    None."""
+    for k in REGISTRY.values():
+        if f"{len(k.entry)}{k.entry}" in line:
+            return k
+    return None

@@ -21,6 +21,7 @@ MAX_BOXES = 2048  # shared memory: 21 bytes per box, under the 48 KB default
 
 KERNEL = CudaKernel(
     name="nms_keep_mask",
+    entry="nms_keep_kernel",
     symbols={torch.float32: "frcnn_nms_keep"},
     argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int],

@@ -1,9 +1,11 @@
-"""Adaptive max pooling over ROI feature rects: the plain PyTorch version.
+"""Adaptive max pooling over ROI feature rects: the plain PyTorch versions
+of the forward and of its gradient.
 
-Port of the JAX package's ``ops/roi_pool.py`` and of the function its
-Pallas kernel computes (``ops/pallas_roi_pool.py::_forward``). Bin ``b`` of
-a rect of extent ``h`` covers ``[floor(b*h/k), ceil((b+1)*h/k))``, so bins
-overlap when the rect is smaller than the grid.
+Port of the JAX package's ``ops/roi_pool.py`` and of the functions its
+Pallas kernels compute (``ops/pallas_roi_pool.py::_forward`` and
+``_backward``). Bin ``b`` of a rect of extent ``h`` covers
+``[floor(b*h/k), ceil((b+1)*h/k))``, so bins overlap when the rect is
+smaller than the grid.
 """
 
 from __future__ import annotations
@@ -81,3 +83,88 @@ def adaptive_max_pool(fm, rects, valid, kh: int, kw: int):
     pooled = torch.stack(out)
     return torch.where(valid[:, :, None, None, None], pooled,
                        torch.zeros((), dtype=fm.dtype, device=fm.device))
+
+
+def adaptive_max_pool_backward(fm, rects, valid, g, kh: int, kw: int):
+    """Gradient of :func:`adaptive_max_pool` with respect to ``fm``.
+
+    fm [B, H, W, C]; rects [B, D, 4] prepared feature rects; valid [B, D]
+    bool (invalid rois contribute nothing); g [B, D, kh, kw, C], cast to the
+    dtype of ``fm`` first as the JAX wrapper does. Returns dfm [B, H, W, C]
+    in the dtype of ``fm``, accumulated in float32 and cast once.
+
+    The VJP of the JAX formulation, which reduces COLUMNS first, then rows
+    (``frcnn_tpu/ops/roi_pool.py::adaptive_max_pool``): per roi, recompute
+    each column bin's max over every row (``colmax [H, kw, C]``); the row
+    stage splits ``g`` evenly among the rows that tie for a row bin's max of
+    ``colmax`` and sums it per (row, column bin) into ``dcol`` across
+    overlapping row bins; the column stage splits ``dcol`` evenly among the
+    columns of the bin where ``fm`` equals ``colmax``. (The forward here
+    reduces rows first; autodiff through it would split ties otherwise.)
+    Sums run in the order of the Pallas kernel (rois, then row bins into
+    ``dcol``; rois, then column bins into ``dfm``), so in float32 the
+    result is that kernel's to the bit.
+    """
+    B, H, W, C = fm.shape
+    D = rects.shape[1]
+    f = fm.float()
+    gq = g.to(fm.dtype).float()
+    r = rects.to(torch.int32).to(torch.int64)
+    x0, y0, x1, y1 = r.unbind(-1)
+    maxh = min(H, -(-H // kh) + 1)
+    maxw = min(W, -(-W // kw) + 1)
+    rows, rmask = _bin_windows(y0, y1, kh, H, maxh)   # [B, D, kh, maxh]
+    cols, cmask = _bin_windows(x0, x1, kw, W, maxw)   # [B, D, kw, maxw]
+    neg = torch.tensor(-torch.inf, device=fm.device)
+    zero = torch.zeros((), device=fm.device)
+    bi = torch.arange(B, device=fm.device)
+    dfm = torch.zeros((B, H, W, C), dtype=torch.float32, device=fm.device)
+    dfm_t = dfm.permute(0, 2, 1, 3)                   # [B, W, H, C] view
+    for d in range(D):
+        # column stage forward over every row: colmax [B, kw, H, C]
+        win = f[bi[:, None, None], :, cols[:, d]]     # [B, kw, maxw, H, C]
+        win = torch.where(cmask[:, d][..., None, None], win, neg)
+        colmax = win.amax(dim=2)
+        eq_c = win == colmax[:, :, None]
+        cnt_c = eq_c.sum(dim=2).clamp(min=1)          # [B, kw, H, C]
+        # row stage: split g among the tied rows of each row bin
+        rwin = colmax.permute(0, 2, 1, 3)[bi[:, None, None], rows[:, d]]
+        rwin = torch.where(rmask[:, d][..., None, None], rwin, neg)
+        eq_r = rwin == rwin.amax(dim=2, keepdim=True)  # [B, kh, maxh, kw, C]
+        share = gq[:, d] / eq_r.sum(dim=2).clamp(min=1)
+        share = torch.where(valid[:, d][:, None, None, None], share, zero)
+        dcol = torch.zeros((B, H, kw, C), dtype=torch.float32,
+                           device=fm.device)
+        for rb in range(kh):
+            dcol.index_put_((bi[:, None], rows[:, d, rb]),
+                            eq_r[:, rb] * share[:, rb, None], accumulate=True)
+        # column stage: split dcol among the tied columns of each bin
+        for cb in range(kw):
+            part = dcol[:, :, cb] / cnt_c[:, cb]      # [B, H, C]
+            dfm_t.index_put_((bi[:, None], cols[:, d, cb]),
+                             eq_c[:, cb] * part[:, None], accumulate=True)
+    return dfm.to(fm.dtype)
+
+
+class _RoiPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fm, rects, valid, kh, kw, forward, backward):
+        ctx.save_for_backward(fm, rects, valid)
+        ctx.args = (kh, kw, backward)
+        return forward(fm, rects, valid, kh, kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        fm, rects, valid = ctx.saved_tensors
+        kh, kw, backward = ctx.args
+        return (backward(fm, rects, valid, g, kh, kw),
+                None, None, None, None, None, None)
+
+
+def adaptive_max_pool_grad(fm, rects, valid, kh: int, kw: int,
+                           forward=adaptive_max_pool,
+                           backward=adaptive_max_pool_backward):
+    """``forward(fm, rects, valid, kh, kw)``, differentiable in ``fm``
+    through ``backward(fm, rects, valid, g, kh, kw)`` (default: the plain
+    versions of this module)."""
+    return _RoiPool.apply(fm, rects, valid, kh, kw, forward, backward)

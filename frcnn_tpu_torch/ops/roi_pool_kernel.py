@@ -1,10 +1,12 @@
-"""Batched adaptive max ROI pooling on the hand-written CUDA kernel
-``csrc/roi_pool.cu`` (forward only).
+"""Batched adaptive max ROI pooling on hand-written CUDA kernels: the
+forward ``csrc/roi_pool.cu`` and its gradient ``csrc/roi_pool_bwd.cu``.
 
-Port of ``frcnn_tpu/ops/pallas_roi_pool.py::pallas_adaptive_max_pool_valid``.
-On a CPU tensor the wrapper runs the plain version
-(``ops/roi_pool.py::adaptive_max_pool``); on a CUDA tensor it launches the
-kernel or raises.
+Port of ``frcnn_tpu/ops/pallas_roi_pool.py::pallas_adaptive_max_pool_valid``
+and its custom VJP. On CPU tensors the wrappers run the plain versions
+(``ops/roi_pool.py::adaptive_max_pool`` and ``adaptive_max_pool_backward``);
+on CUDA tensors they launch the kernels or raise.
+:func:`adaptive_max_pool_valid_grad` is the differentiable form that
+training uses.
 """
 
 from __future__ import annotations
@@ -18,12 +20,24 @@ from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel(
     name="roi_pool",
+    entry="roi_pool_kernel",
     symbols={torch.float32: "frcnn_roi_pool_f32",
              torch.bfloat16: "frcnn_roi_pool_bf16"},
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
     source="frcnn_tpu_torch/csrc/roi_pool.cu",
     replaces="frcnn_tpu/ops/pallas_roi_pool.py:36 (_kernel of _forward, "
              "pallas_call at :186)",
+)
+
+BWD_KERNEL = CudaKernel(
+    name="roi_pool_bwd",
+    entry="roi_pool_bwd_kernel",
+    symbols={torch.float32: "frcnn_roi_pool_bwd_f32",
+             torch.bfloat16: "frcnn_roi_pool_bwd_bf16"},
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
+    source="frcnn_tpu_torch/csrc/roi_pool_bwd.cu",
+    replaces="frcnn_tpu/ops/pallas_roi_pool.py:194 (_bwd_kernel of "
+             "_backward, pallas_call at :344)",
 )
 
 
@@ -44,3 +58,33 @@ def adaptive_max_pool_valid(fm, rects, valid, kh: int, kw: int):
     KERNEL.launch(fm.dtype, ptr(fm), ptr(rects_i), ptr(valid), ptr(out),
                   B, D, H, W, C, kh, kw)
     return out
+
+
+def adaptive_max_pool_valid_backward(fm, rects, valid, g, kh: int, kw: int):
+    """dfm [B, H, W, C] in the dtype of ``fm`` for the cotangent ``g``
+    [B, D, kh, kw, C] of :func:`adaptive_max_pool_valid` (cast to the dtype
+    of ``fm`` first); invalid rois contribute nothing."""
+    if fm.device.type == "cpu":
+        return plain.adaptive_max_pool_backward(fm, rects, valid, g, kh, kw)
+    B, H, W, C = fm.shape
+    D = rects.shape[1]
+    rects_i = rects.to(torch.int32).contiguous()
+    gq = g.to(fm.dtype).contiguous()
+    check_cuda("fm", fm, fm.dtype, (B, H, W, C))
+    check_cuda("rects", rects_i, torch.int32, (B, D, 4))
+    check_cuda("valid", valid, torch.bool, (B, D))
+    check_cuda("g", gq, fm.dtype, (B, D, kh, kw, C))
+    dfm = torch.empty_like(fm)
+    BWD_KERNEL.launch(fm.dtype, ptr(fm), ptr(rects_i), ptr(valid), ptr(gq),
+                      ptr(dfm), B, D, H, W, C, kh, kw)
+    return dfm
+
+
+def adaptive_max_pool_valid_grad(fm, rects, valid, kh: int, kw: int):
+    """:func:`adaptive_max_pool_valid`, differentiable in ``fm`` through
+    :func:`adaptive_max_pool_valid_backward`. Exact for training only where
+    the losses mask invalid rois out (their cotangent is then zero), as
+    for the JAX wrapper."""
+    return plain.adaptive_max_pool_grad(fm, rects, valid, kh, kw,
+                                        adaptive_max_pool_valid,
+                                        adaptive_max_pool_valid_backward)

@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "frcnn_tpu")
 WRAPPERS = ("frcnn_tpu_torch.ops.nms_kernel",
             "frcnn_tpu_torch.ops.roi_pool_kernel",
-            "frcnn_tpu_torch.ops.block0_kernel")
+            "frcnn_tpu_torch.ops.block0_kernel",
+            "frcnn_tpu_torch.ops.pool_bwd_kernel")
 
 
 def _port_files():
@@ -49,7 +50,8 @@ def test_port_imports_with_the_jax_side_blocked():
     code = (f"import sys; {block}; "
             "import frcnn_tpu_torch.detect.detector, chip_smoke, "
             "frcnn_tpu_torch.utils.serialization, "
-            "frcnn_tpu_torch.utils.weights; print('ok')")
+            "frcnn_tpu_torch.utils.weights, "
+            "frcnn_tpu_torch.train.trainer; print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
@@ -57,12 +59,21 @@ def test_port_imports_with_the_jax_side_blocked():
 
 @pytest.mark.parametrize("module", WRAPPERS)
 def test_wrapper_counter_and_source_note(module):
-    k = importlib.import_module(module).KERNEL
-    assert isinstance(k.launches, int)
-    src = (ROOT / k.source).read_text()
-    assert '#include <torch' not in src and "ATen" not in src
-    tpu_file, line = k.replaces.split(" ")[0].split(":")
-    assert f"Replaces: {tpu_file}::" in src.replace("\n//", "")
-    tpu_src = (ROOT / tpu_file).read_text().splitlines()
-    assert tpu_src[int(line) - 1].startswith("def _kernel"), k.replaces
-    assert "pl.pallas_call(" in "\n".join(tpu_src)
+    """Every kernel of the wrapper module (the ROI pool's has two)."""
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY, CudaKernel
+
+    mod = importlib.import_module(module)
+    kernels = [v for v in vars(mod).values() if isinstance(v, CudaKernel)]
+    assert mod.KERNEL in kernels
+    for k in kernels:
+        assert REGISTRY[k.name] is k
+        assert isinstance(k.launches, int)
+        src = (ROOT / k.source).read_text()
+        assert '#include <torch' not in src and "ATen" not in src
+        assert f"void {k.entry}(" in src or f"{k.entry}(const" in src
+        tpu_file, line = k.replaces.split(" ")[0].split(":")
+        assert f"Replaces: {tpu_file}::" in src.replace("\n//", "")
+        tpu_src = (ROOT / tpu_file).read_text().splitlines()
+        assert tpu_src[int(line) - 1].startswith(
+            ("def _kernel", "def _bwd_kernel")), k.replaces
+        assert "pl.pallas_call(" in "\n".join(tpu_src)

@@ -10,6 +10,14 @@ Tolerances:
   the threshold included;
 * ROI pool: exactly equal, small and overlapping bins and invalid rois
   included;
+* ROI-pool backward (plain): against the Pallas ``_backward`` (interpret)
+  and ``jax.vjp`` of ``adaptive_max_pool``, atol 1e-6 in float32 (sums in
+  another order); in bf16 within one bf16 ulp of ``_backward``; ties,
+  overlapping bins and invalid rois included;
+* first-max pool backward (plain): bitwise equal to ``jax.vjp`` of
+  ``ceil_max_pool_2x2``, to ``_pool_bwd_pallas`` (interpret, even W) and
+  to ``F.max_pool2d``'s own backward, float32 and bf16, with ties and odd
+  H and W;
 * block0 plain: rtol 1e-4 / atol 1e-4 in float32 against
   ``compute_s2d_block0`` (the fused kernel at compute dtype float32);
   against ``block0_nhwc`` (whose
@@ -30,9 +38,15 @@ from frcnn_tpu.detect.detector import compute_s2d_block0
 from frcnn_tpu.ops.pallas_block0 import block0_nhwc
 from frcnn_tpu.ops.pallas_block0 import pack_s2d_np as j_pack_s2d_np
 from frcnn_tpu.ops.pallas_nms import pallas_nms, pallas_nms_keep_mask
+from frcnn_tpu.models.layers import ceil_max_pool_2x2 as j_pool
+from frcnn_tpu.ops.pallas_pool_bwd import _pool_bwd_pallas
+from frcnn_tpu.ops.pallas_roi_pool import _backward as j_roi_backward
 from frcnn_tpu.ops.pallas_roi_pool import pallas_adaptive_max_pool_valid
+from frcnn_tpu.ops.roi_pool import adaptive_max_pool as j_adaptive_max_pool
 from frcnn_tpu.ops.roi_pool import prepare_roi_rects as j_prepare
 from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
+from frcnn_tpu_torch.ops import pool_bwd as tpool
+from frcnn_tpu_torch.ops import pool_bwd_kernel
 from frcnn_tpu_torch.ops import color as tcolor
 from frcnn_tpu_torch.ops import nms as tnms
 from frcnn_tpu_torch.ops import normalization as tnorm
@@ -205,6 +219,110 @@ def test_roi_pool_plain_matches_pallas(seed, H, W):
     np.testing.assert_array_equal(got16.float().numpy(), ref16)
 
 
+def _roi_case(seed, H, W, B=2, C=16, D=24):
+    rng = np.random.default_rng(seed)
+    fm = rng.integers(0, 4, (B, H, W, C)).astype(np.float32) / 4  # ties
+    raw = np.concatenate([rng.integers(-3, W, (B, D, 1)),
+                          rng.integers(-3, H, (B, D, 1)),
+                          rng.integers(0, W + 4, (B, D, 1)),
+                          rng.integers(0, H + 4, (B, D, 1))],
+                         -1).astype(np.float32)
+    raw[:, :4] = [0, 0, 2, 3]                       # smaller than the grid
+    rects = troi.prepare_roi_rects(
+        _t(raw), _t(np.full((B, 1), float(W), np.float32)),
+        _t(np.full((B, 1), float(H), np.float32))).numpy()
+    valid = rng.uniform(size=(B, D)) > 0.25
+    g = rng.normal(size=(B, D, 6, 6, C)).astype(np.float32)
+    return fm, rects, valid, g
+
+
+@pytest.mark.parametrize("seed,H,W", [(0, 29, 50), (1, 7, 9)])
+def test_roi_pool_backward_plain_matches_jax(seed, H, W):
+    fm, rects, valid, g = _roi_case(seed, H, W)
+    got = troi.adaptive_max_pool_backward(_t(fm), _t(rects), _t(valid),
+                                          _t(g), 6, 6)
+    assert got.dtype == torch.float32
+    ref = j_roi_backward(jnp.asarray(fm), jnp.asarray(rects),
+                         jnp.asarray(valid), jnp.asarray(g), 6, 6, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-6)
+    # autodiff of the columns-first XLA formulation, one image at a time
+    gm = g * valid[:, :, None, None, None]
+    for b in range(fm.shape[0]):
+        _, vjp = jax.vjp(lambda f: j_adaptive_max_pool(
+            f, jnp.asarray(rects[b]), 6, 6), jnp.asarray(fm[b]))
+        np.testing.assert_allclose(got[b].numpy(),
+                                   np.asarray(vjp(jnp.asarray(gm[b]))[0]),
+                                   rtol=0, atol=1e-6)
+    # bf16 maps: float32 sums, one cast, within one bf16 ulp
+    got16 = troi.adaptive_max_pool_backward(
+        _t(fm).bfloat16(), _t(rects), _t(valid), _t(g), 6, 6)
+    assert got16.dtype == torch.bfloat16
+    ref16 = np.asarray(j_roi_backward(
+        jnp.asarray(fm, jnp.bfloat16), jnp.asarray(rects), jnp.asarray(valid),
+        jnp.asarray(g), 6, 6, True).astype(jnp.float32))
+    ref16 = torch.from_numpy(np.array(ref16)).bfloat16()
+    ulps = (got16.view(torch.int16).int() - ref16.view(torch.int16).int())
+    assert int(ulps.abs().max()) <= 1
+
+
+def test_roi_pool_grad_functions():
+    """The differentiable pools (plain, and the kernel wrapper on CPU)
+    send the cotangent through the plain backward."""
+    fm, rects, valid, g = _roi_case(2, 9, 11)
+    want = troi.adaptive_max_pool_backward(_t(fm), _t(rects), _t(valid),
+                                           _t(g), 6, 6)
+    for fn in (troi.adaptive_max_pool_grad,
+               roi_pool_kernel.adaptive_max_pool_valid_grad):
+        x = _t(fm).requires_grad_(True)
+        out = fn(x, _t(rects), _t(valid), 6, 6)
+        assert torch.equal(out.detach(), troi.adaptive_max_pool(
+            _t(fm), _t(rects), _t(valid), 6, 6))
+        out.backward(_t(g))
+        assert torch.equal(x.grad, want)
+
+
+POOL_CASES = [((2, 8, 16, 64), None), ((2, 8, 16, 64), 2),
+              ((1, 7, 16, 64), 3), ((1, 9, 8, 128), None),
+              ((2, 16, 6, 64), 2), ((1, 7, 9, 16), 2), ((2, 5, 3, 8), 1)]
+
+
+@pytest.mark.parametrize("shape,ties", POOL_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_backward_plain_matches_jax_and_torch(shape, ties, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    if ties:
+        x = np.round(x * ties) / ties
+    B, H, W, C = shape
+    g = rng.normal(size=(B, -(-H // 2), -(-W // 2), C)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, jg = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
+    tx, tg = _t(x).to(tdt), _t(g).to(tdt)
+    got = tpool.ceil_max_pool_2x2_bwd(tx, tg)
+    assert got.dtype == tdt and got.shape == tx.shape
+
+    def same(ref):
+        ref = torch.from_numpy(np.asarray(jnp.asarray(ref, jnp.float32)))
+        assert torch.equal(got.float(), ref)
+
+    _, vjp = jax.vjp(j_pool, jx)
+    same(vjp(jg)[0])
+    if W % 2 == 0:
+        same(_pool_bwd_pallas(jx, jg, interpret=True))
+    # torch's own max_pool2d backward, and the autograd wrapper, on NCHW
+    xn = tx.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    torch.nn.functional.max_pool2d(xn, 2, 2, ceil_mode=True).backward(
+        tg.permute(0, 3, 1, 2))
+    assert torch.equal(xn.grad.permute(0, 2, 3, 1), got)
+    xk = tx.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    out = pool_bwd_kernel.ceil_max_pool_2x2_firstmax(xk)
+    assert torch.equal(out.detach(), torch.nn.functional.max_pool2d(
+        xk.detach(), 2, 2, ceil_mode=True))
+    out.backward(tg.permute(0, 3, 1, 2))
+    assert torch.equal(xk.grad.permute(0, 2, 3, 1), got)
+
+
 # -- block0 ---------------------------------------------------------------------
 
 def test_block0_plain_matches_pallas():
@@ -247,13 +365,24 @@ def _dispatch_case(name):
         args = (_t(boxes), torch.ones(2, 32, dtype=torch.bool), 0.25, 16)
         return nms_kernel.nms_keep_mask, tnms.nms_keep_mask, args, \
             nms_kernel.KERNEL
-    if name == "roi_pool":
+    if name in ("roi_pool", "roi_pool_bwd"):
         fm = _t(rng.normal(size=(2, 9, 11, 8)).astype(np.float32))
         rects = torch.tensor([[[0, 0, 9, 7], [2, 1, 5, 8]]] * 2,
                              dtype=torch.float32)
-        args = (fm, rects, torch.tensor([[True, False]] * 2), 6, 6)
-        return roi_pool_kernel.adaptive_max_pool_valid, \
-            troi.adaptive_max_pool, args, roi_pool_kernel.KERNEL
+        valid = torch.tensor([[True, False]] * 2)
+        if name == "roi_pool":
+            return roi_pool_kernel.adaptive_max_pool_valid, \
+                troi.adaptive_max_pool, (fm, rects, valid, 6, 6), \
+                roi_pool_kernel.KERNEL
+        g = _t(rng.normal(size=(2, 2, 6, 6, 8)).astype(np.float32))
+        return roi_pool_kernel.adaptive_max_pool_valid_backward, \
+            troi.adaptive_max_pool_backward, (fm, rects, valid, g, 6, 6), \
+            roi_pool_kernel.BWD_KERNEL
+    if name == "pool_bwd":
+        x = _t(np.round(rng.normal(size=(2, 7, 9, 8)) * 2).astype(np.float32))
+        g = _t(rng.normal(size=(2, 4, 5, 8)).astype(np.float32))
+        return pool_bwd_kernel.ceil_max_pool_2x2_bwd, \
+            tpool.ceil_max_pool_2x2_bwd, (x, g), pool_bwd_kernel.KERNEL
     lum4, chroma = block0_kernel.pack_s2d_np(
         rng.normal(size=(1, 8, 12, 3)).astype(np.float32))
     w27, bias = block0_kernel.block0_weights(
@@ -264,7 +393,8 @@ def _dispatch_case(name):
         block0_kernel.KERNEL
 
 
-@pytest.mark.parametrize("name", ["nms", "roi_pool", "block0"])
+@pytest.mark.parametrize("name", ["nms", "roi_pool", "block0",
+                                  "roi_pool_bwd", "pool_bwd"])
 def test_wrapper_runs_plain_version_on_cpu(name):
     """On CPU tensors each wrapper returns its plain version's result
     exactly and counts no launch."""
