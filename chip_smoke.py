@@ -9,7 +9,8 @@ Phases, each printing one flushed line with its seconds:
   kernels  each kernel against its plain PyTorch version at the serving
            shapes (equal, or within the stated tolerance), with CUDA-event
            times of kernel, plain version and, where one PyTorch call
-           computes the same function, that call
+           computes the same function, that call; the 2-conv block0 kernel
+           in both vgg_large buckets (timed at 480x1000)
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
@@ -18,6 +19,14 @@ Phases, each printing one flushed line with its seconds:
            (torch.profiler), and the device's busy share: that device
            time over the wall time of the same batches run without the
            profiler
+  detect-large  the serving Detector of vgg_large (imagenet serving
+           config, 201 classes, seeded weights) at 480x1000 and at the
+           portrait bucket 1000x480, batch 8: float32 through the kernels
+           equals float32 through the plain versions in both buckets; then
+           bf16 batches from packed device planes with ms/batch, img/s and
+           the launch counts of every kernel read around them (the 2-conv
+           block0 kernel's above 0 in both buckets)
+  profile-large  the profile phase's breakdown for a vgg_large bf16 batch
   train-kernels  the two training kernels against their plain versions at
            the train step's shapes (ROI-pool backward within its stated
            tolerance; first-max pool backward bitwise, also against the
@@ -60,9 +69,12 @@ CKPT = ROOT / "artifacts" / "ckpt" / "photo_partial.ckpt"
 B = 8
 IMAGE_HW = (450, 800)
 
+LARGE_HW = ((480, 1000), (1000, 480))   # the imagenet buckets
+
 KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
                   "frcnn_tpu_torch.ops.roi_pool_kernel",
                   "frcnn_tpu_torch.ops.block0_kernel",
+                  "frcnn_tpu_torch.ops.block0_2conv_kernel",
                   "frcnn_tpu_torch.ops.pool_bwd_kernel")
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
@@ -287,13 +299,104 @@ def check_block0(gen):
     return res[torch.bfloat16]
 
 
+def _bf16_ulp(m: float) -> float:
+    """One bf16 unit in the last place at magnitude ``m``."""
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def _check_2conv_values(K, l, c, p):
+    """The 2-conv kernel against its plain version on the planes (l, c);
+    returns (kernel output, max abs error, tolerance text, values that
+    differ)."""
+    got = K.fused_block0_2conv(l, c, *p)
+    torch.cuda.synchronize()
+    ref = K.block0_2conv_plain(l, c, *p)
+    err = (got.float() - ref.float()).abs()
+    peak = float(ref.float().abs().max())
+    if l.dtype == torch.float32:
+        # the same float32 sums in another order, no TF32
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        tol = "rtol/atol 1e-4"
+    else:
+        # y0 is rounded to bf16 in both from float32 sums taken in another
+        # order (a value may round the other way), and the output is
+        # rounded once: within 2 ulps of the largest output
+        lim = 2 * _bf16_ulp(peak)
+        if float(err.max()) > lim:
+            raise AssertionError(f"block0_2conv bf16 {tuple(got.shape)}: max "
+                                 f"abs err {float(err.max()):.3g} > {lim:.3g}")
+        tol = f"2 bf16 ulps of {peak:.3g} = {lim:.3g}"
+    return got, float(err.max()), tol, int((err > 0).sum())
+
+
+def check_block0_2conv(gen):
+    from frcnn_tpu_torch.ops import block0_2conv_kernel as K
+    from frcnn_tpu_torch.ops.block0_kernel import pack_padded
+
+    t = time.perf_counter()
+    Fo = 64
+    # random pad rings: the kernel must mask y0 outside the image itself
+    P = {hw: torch.randn(B, hw[0] + 2, hw[1] + 2, 3, generator=gen).cuda()
+         for hw in LARGE_HW}
+    std = (2.0 / (9 * Fo)) ** 0.5          # the seeded init's MSRA fan-out
+    w0 = (torch.randn(Fo, 3, 3, 3, generator=gen) * std).cuda()
+    w1 = (torch.randn(Fo, Fo, 3, 3, generator=gen) * std).cuda()
+    b0 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+    b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+    s0, s1 = 0.25, 0.1
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
+        # the portrait bucket's shape: values only (partial column tiles)
+        H, W = LARGE_HW[1]
+        l, c = (x.to(dt) for x in pack_padded(P[LARGE_HW[1]]))
+        _, err, tol, n_mis = _check_2conv_values(K, l, c, p)
+        log("kernels", f"fused_block0_2conv {str(dt)[6:]} B={B} {H}x{W} "
+            f"(random pad ring): max abs err {err:.3g} ({tol}; {n_mis} "
+            f"values differ)", t)
+        H, W = LARGE_HW[0]
+        l, c = (x.to(dt) for x in pack_padded(P[LARGE_HW[0]]))
+        got, max_err, tol, n_mis = _check_2conv_values(K, l, c, p)
+        ms = time_ms(lambda: K.fused_block0_2conv(l, c, *p))
+        pms = time_ms(lambda: K.block0_2conv_plain(l, c, *p), reps=5,
+                      warmup=1)
+        n_ops = 2.0 * B * H * W * Fo * (27 + 9 * Fo)
+        n_bytes = (l.numel() + c.numel() + p.w0.numel() + p.w1.numel()
+                   + got.numel()) * l.element_size() + 4 * (2 * Fo + 2)
+        bms, by = bound_ms(n_bytes, n_ops, dt)
+        # yardstick the port never calls: conv + prelu + conv + prelu +
+        # pool through cuDNN in dt, channels_last
+        xi = P[LARGE_HW[0]][:, 1:-1, 1:-1].permute(0, 3, 1, 2).to(dt) \
+            .contiguous(memory_format=torch.channels_last)
+        w0d, w1d = (w.to(dt).contiguous(memory_format=torch.channels_last)
+                    for w in (w0, w1))
+        b0d, b1d = b0.to(dt), b1.to(dt)
+        a0 = torch.tensor([s0], device="cuda", dtype=dt)
+        a1 = torch.tensor([s1], device="cuda", dtype=dt)
+        lib_ms = time_ms(lambda: F.max_pool2d(F.prelu(F.conv2d(F.prelu(
+            F.conv2d(xi, w0d, b0d, padding=1), a0), w1d, b1d, padding=1),
+            a1), 2, ceil_mode=True), reps=10)
+        res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                   "bound_by": by, "max_abs_err": max_err,
+                   "library_ms": lib_ms}
+        log("kernels", f"fused_block0_2conv {str(dt)[6:]} B={B} {H}x{W} "
+            f"(random pad ring): max abs err {max_err:.3g} ({tol}; {n_mis} "
+            f"of {got.numel()} values differ); kernel {ms:.4f} ms, plain "
+            f"{pms:.3f} ms, conv+prelu+conv+prelu+pool calls {lib_ms:.4f} "
+            f"ms, bound {bms:.5f} ms ({by})", t)
+        del got, xi
+        torch.cuda.empty_cache()
+    return res[torch.bfloat16]
+
+
 def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     return {"nms_keep_mask": check_nms(gen),
             "roi_pool": check_roi_pool(gen),
-            "fused_block0": check_block0(gen)}
+            "fused_block0": check_block0(gen),
+            "fused_block0_2conv": check_block0_2conv(gen)}
 
 
 # -- detect -------------------------------------------------------------------
@@ -334,9 +437,30 @@ def _frames(seed: int, n: int, hw=IMAGE_HW):
     return np.clip(img, 0, 255).astype(np.uint8), boxes, classes
 
 
+def _seeded_models(cfg, seed: int = 0, cls_spread: float = 20.0):
+    """pnet and cnet of ``cfg`` from the seeded initialisation, made to
+    carry load: random class logits are near uniform, so the 0.2
+    confidence gate would reject every ROI, and random box regressions
+    reach thousands of pixels. ``cls_spread`` scales the class head."""
+    from frcnn_tpu_torch.models.factory import init_models
+
+    pnet, cnet = init_models(cfg, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        # spread the class logits so the last stage has work
+        cnet.cls_head.weight.mul_(cls_spread)
+        # keep boxes near their anchors, at the coordinates trained
+        # weights give
+        for ai in range(len(cfg.model.anchor_nets)):
+            w = getattr(pnet, f"anchor{ai}_out").weight
+            for j in range(3):
+                w[6 * j + 2:6 * j + 6].mul_(0.1)
+        cnet.reg_head.weight.mul_(0.1)
+    return pnet, cnet
+
+
 def _load_models():
     from frcnn_tpu_torch.config import Config, duplo_config, serving_config
-    from frcnn_tpu_torch.models.factory import create_models, init_models
+    from frcnn_tpu_torch.models.factory import create_models
     from frcnn_tpu_torch.utils.serialization import load_checkpoint
     from frcnn_tpu_torch.utils.weights import from_jax_params
 
@@ -358,24 +482,57 @@ def _load_models():
         base = duplo_config(class_count=6)
         cfg = serving_config(base.replace(shapes=dataclasses.replace(
             base.shapes, image_hw=IMAGE_HW)))
-        pnet, cnet = init_models(cfg, torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            # random class logits are near uniform, so the 0.2 confidence
-            # gate would reject every ROI: spread them so the last stage
-            # has work
-            cnet.cls_head.weight.mul_(20.0)
-            # random box regressions reach thousands of pixels; keep boxes
-            # near their anchors, at the coordinates trained weights give
-            for ai in range(len(cfg.model.anchor_nets)):
-                w = getattr(pnet, f"anchor{ai}_out").weight
-                for j in range(3):
-                    w[6 * j + 2:6 * j + 6].mul_(0.1)
-            cnet.reg_head.weight.mul_(0.1)
+        pnet, cnet = _seeded_models(cfg)
         src = "seeded initialisation (torch.Generator seed 0)"
     cfg = cfg.replace(detect_fg_threshold=0.5)
     log("detect", f"weights from {src}; {cfg.model.name}, "
         f"{cfg.class_count} classes, bucket {cfg.shapes.image_hw}", t)
     return cfg, pnet, cnet
+
+
+def _check_f32_detect(phase: str, ker, ref, what: str, t: float,
+                      ordered: bool = True):
+    """float32 detections through the kernels equal those through the
+    plain versions: ``valid``, ``classes`` and ``proposals_valid`` equal,
+    boxes within 1e-3, confidence within 1e-4. With ``ordered=False`` two
+    detections whose confidences lie within that 1e-4 may stand in either
+    order: each image's detections are matched by (class, box) instead of
+    by slot, and the slots' confidences must still agree."""
+    if not torch.equal(ker.proposals_valid, ref.proposals_valid):
+        raise AssertionError(f"{phase} f32 {what}: proposals_valid differs "
+                             f"between kernels and plain versions")
+    if ordered:
+        got, want = ker, ref
+    else:
+        torch.testing.assert_close(ker.confidence, ref.confidence, rtol=0,
+                                   atol=1e-4)
+        got, want = (_by_class_and_box(r) for r in (ker, ref))
+    for f in ("valid", "classes"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{phase} f32 {what}: {f} differs between "
+                                 f"kernels and plain versions")
+    torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got.confidence, want.confidence, rtol=0,
+                               atol=1e-4)
+    log(phase, f"float32 B={B} {what}: kernels == plain versions "
+        f"({int(ref.proposals_valid.sum())} proposals, "
+        f"{int(ref.valid.sum())} detections"
+        f"{'' if ordered else ', matched by class and box'})", t)
+
+
+def _by_class_and_box(res):
+    """``res`` with each image's slots ordered by (valid first, class, x0,
+    y0) instead of by confidence."""
+    keys = torch.stack([(~res.valid).double(), res.classes.double(),
+                        res.boxes[..., 0].double(),
+                        res.boxes[..., 1].double()], -1).cpu().numpy()
+    order = torch.from_numpy(np.stack(
+        [np.lexsort(k.T[::-1]) for k in keys])).to(res.valid.device)
+    take = lambda x: torch.gather(
+        x, 1, order.view(*order.shape, *([1] * (x.dim() - 2))).expand_as(x))
+    return res._replace(valid=take(res.valid), classes=take(res.classes),
+                        boxes=take(res.boxes),
+                        confidence=take(res.confidence))
 
 
 def phase_detect(kernels):
@@ -398,16 +555,7 @@ def phase_detect(kernels):
     ref = Detector(cfg32.replace(pallas_mode="off"), pnet, cnet,
                    device="cuda").detect(frames, true_hw)
     torch.cuda.synchronize()
-    for f in ("valid", "classes", "proposals_valid"):
-        if not torch.equal(getattr(ker, f), getattr(ref, f)):
-            raise AssertionError(f"detect f32: {f} differs between kernels "
-                                 f"and plain versions")
-    torch.testing.assert_close(ker.boxes, ref.boxes, rtol=0, atol=1e-3)
-    torch.testing.assert_close(ker.confidence, ref.confidence, rtol=0,
-                               atol=1e-4)
-    log("detect", f"float32 B={B}: kernels == plain versions "
-        f"({int(ref.proposals_valid.sum())} proposals, "
-        f"{int(ref.valid.sum())} detections)", t)
+    _check_f32_detect("detect", ker, ref, f"{IMAGE_HW[0]}x{IMAGE_HW[1]}", t)
 
     # bf16 serving: the main path, with launch counts read around it
     t = time.perf_counter()
@@ -456,12 +604,13 @@ def phase_detect(kernels):
         f"{B / dev_ms * 1e3:.1f} img/s; {n_in} proposals into NMS, "
         f"{n_roi} rois pooled, {n_det} detections; launches {launches} over "
         f"{n_calls} calls", t)
-    for k in kernels:
-        kernels[k]["launches"] = launches[k]
+    for k, n in launches.items():
+        kernels[k]["launches"] = n
     phase_profile(det, (lum4, chroma), hw_dev)
 
 
 PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
+    ("block0_2conv_kernel", "block0_2conv kernel"),
     ("block0_kernel", "block0 kernel"), ("nms_keep_kernel", "nms kernel"),
     ("roi_pool_bwd_kernel", "roi_pool_bwd kernel"),
     ("pool_bwd_kernel", "pool_bwd kernel"),
@@ -526,6 +675,113 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
 def phase_profile(det, planes, hw_dev):
     profile_run("profile", f"bf16 serving B={B}",
                 lambda: det.detect(planes, hw_dev), "batch")
+
+
+# -- detect-large ---------------------------------------------------------------
+
+LARGE_CALLS = 5
+
+
+def phase_detect_large(kernels):
+    from frcnn_tpu_torch.config import imagenet_config, serving_config
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.ops import (
+        block0_2conv_kernel,
+        block0_kernel,
+        nms_kernel,
+        roi_pool_kernel,
+    )
+    from frcnn_tpu_torch.ops.color import unwire_uint8
+
+    modules = {"nms_keep_mask": nms_kernel, "roi_pool": roi_pool_kernel,
+               "fused_block0": block0_kernel,
+               "fused_block0_2conv": block0_2conv_kernel}
+    t = time.perf_counter()
+    cfg = serving_config(imagenet_config()).replace(detect_fg_threshold=0.5)
+    if cfg.input_layout != "s2d" or cfg.model.layers[0].conv_steps != 2:
+        raise AssertionError("imagenet serving must take the s2d 2-conv path")
+    # 201 classes and vgg_large's pooled features: a spread of 20 leaves the
+    # class logits at a standard deviation of ~0.2 (confidence ~1/201), so
+    # they get 25 times more, a deviation of ~5
+    pnet, cnet = _seeded_models(cfg, cls_spread=500.0)
+    widths = "/".join(str(s.filters) for s in cfg.model.layers)
+    log("detect-large", f"seeded initialisation (torch.Generator seed 0); "
+        f"{cfg.model.name} ({widths}, conv_steps "
+        f"{[s.conv_steps for s in cfg.model.layers]}), {cfg.class_count} "
+        f"classes, buckets {cfg.shapes.buckets()}", t)
+
+    # float32 through the kernels == float32 through the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32")
+    ker32 = Detector(cfg32, pnet, cnet, device="cuda")
+    ref32 = Detector(cfg32.replace(pallas_mode="off"), pnet, cnet,
+                     device="cuda")
+    planes = {}
+    for seed, hw in enumerate(LARGE_HW):
+        t = time.perf_counter()
+        frames, _, _ = _frames(3 + seed, B, hw)
+        true_hw = torch.tensor([hw] * B, dtype=torch.int32, device="cuda")
+        lum4, chroma = (torch.from_numpy(a).cuda() for a in
+                        block0_kernel.pack_s2d_np(
+                            unwire_uint8(frames, cfg.color_space)))
+        got = ker32.detect((lum4, chroma), true_hw)
+        ref = ref32.detect((lum4, chroma), true_hw)
+        torch.cuda.synchronize()
+        # the class head's spread of 500 carries the float32 differences
+        # of the convolutions into confidences ~1e-5 apart: detections
+        # closer than that may swap slots
+        _check_f32_detect("detect-large", got, ref, f"{hw[0]}x{hw[1]}", t,
+                          ordered=False)
+        planes[hw] = ((lum4, chroma), true_hw)
+    del ker32, ref32, got, ref
+    torch.cuda.empty_cache()
+
+    # bf16 serving from packed device planes, launch counts read around it
+    det = Detector(cfg, pnet, cnet, device="cuda")
+    total = 0
+    for hw in LARGE_HW:
+        t = time.perf_counter()
+        pl, true_hw = planes[hw]
+        det.detect(pl, true_hw)                 # warm-up
+        torch.cuda.synchronize()
+        for m in modules.values():
+            m.KERNEL.launches = 0
+        t_run = time.perf_counter()
+        outs = [det.detect(pl, true_hw) for _ in range(LARGE_CALLS)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) / LARGE_CALLS
+        launches = {k: m.KERNEL.launches for k, m in modules.items()}
+        dev_ms = time_ms(lambda: det.detect(pl, true_hw), reps=10)
+        out = outs[-1]
+        n_in = int(det.last_counts["proposals_in"].sum())
+        n_roi = int(out.proposals_valid.sum())
+        n_det = int(out.valid.sum())
+        if not (n_in > 0 and n_roi > 0 and n_det > 0):
+            raise AssertionError(f"vgg_large bf16 {hw}: empty stage "
+                                 f"(proposals {n_in}, rois {n_roi}, "
+                                 f"detections {n_det})")
+        if not all(torch.isfinite(x).all() for x in
+                   (out.boxes, out.confidence, out.fg_score, out.proposals)):
+            raise AssertionError(f"vgg_large bf16 {hw}: non-finite outputs")
+        want = {"nms_keep_mask": 2 * LARGE_CALLS, "roi_pool": LARGE_CALLS,
+                "fused_block0": 0, "fused_block0_2conv": LARGE_CALLS}
+        if launches != want:
+            raise AssertionError(f"vgg_large bf16 {hw}: launches {launches} "
+                                 f"in {LARGE_CALLS} calls, expected {want}")
+        total += launches["fused_block0_2conv"]
+        log("detect-large", f"bf16 serving B={B} {hw[0]}x{hw[1]}: "
+            f"{wall * 1e3:.2f} ms/batch from packed device planes "
+            f"({B / wall:.1f} img/s) over {LARGE_CALLS} calls, "
+            f"{dev_ms:.2f} ms/batch by CUDA events ({B / dev_ms * 1e3:.1f} "
+            f"img/s); {n_in} proposals into NMS, {n_roi} rois pooled, "
+            f"{n_det} detections; launches {launches}", t)
+    kernels["fused_block0_2conv"]["launches"] = total
+    profile_run("profile-large", f"vgg_large bf16 serving B={B} "
+                f"{LARGE_HW[0][0]}x{LARGE_HW[0][1]}",
+                lambda: det.detect(*planes[LARGE_HW[0]]), "batch")
+    del det, planes
+    torch.cuda.empty_cache()
 
 
 # -- train kernels --------------------------------------------------------------
@@ -809,6 +1065,7 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_detect(kernels)
+    phase_detect_large(kernels)
     kernels.update(phase_train_kernels())
     phase_train(kernels)
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY

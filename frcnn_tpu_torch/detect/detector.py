@@ -4,8 +4,9 @@ Port of the JAX package's ``detect/detector.py`` (float path):
 
   1. normalize (``normalize_s2d`` on host-packed planes, or
      ``normalize_image`` on NHWC images);
-  2. pnet: the fused block0 kernel on the planes, then blocks 1-3 and the
-     anchor heads;
+  2. pnet: the fused block0 kernel on the planes (the 2-conv kernel
+     where the first block has two convolutions, as in vgg_large), then
+     blocks 1-3 and the anchor heads;
   3. dense decode, keep P(fg) > ``detect_fg_threshold`` inside the image
      and the true-size anchor maps;
   4. top-K (K = ``max_proposals``) by score;
@@ -33,7 +34,12 @@ from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.geometry import boxes as B
 from frcnn_tpu_torch.geometry.anchors import AnchorGenerator
 from frcnn_tpu_torch.models.factory import compute_dtype, for_compute
-from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
+from frcnn_tpu_torch.ops import (
+    block0_2conv_kernel,
+    block0_kernel,
+    nms_kernel,
+    roi_pool_kernel,
+)
 from frcnn_tpu_torch.ops import nms as nms_plain
 from frcnn_tpu_torch.ops import roi_pool as pool_plain
 from frcnn_tpu_torch.ops.color import unwire_uint8
@@ -91,7 +97,8 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
 
     ``images``: NHWC [B, H, W, 3] tensor for ``input_layout='nhwc'``; the
     (lum4, chroma) plane pair for ``'s2d'``. ``true_hw``: [B, 2] tensor.
-    ``block0_params``: (w27, bias, slope) of the block0 kernel (s2d only).
+    ``block0_params``: the block0 kernel's weights (s2d only): (w27, bias,
+    slope) for a one-conv first block, ``Block0TwoConvParams`` for two.
     ``stop_after`` (one of :data:`STAGES`) ends the run after that stage
     and returns a checksum of its outputs, for staged comparisons.
     ``counts``: optional dict that receives ``proposals_in`` [B], the
@@ -113,22 +120,25 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
     kernels = cfg.pallas_mode != "off"
     s2d = cfg.input_layout == "s2d"
     cdt = compute_dtype(cfg)
+    spec0 = cfg.model.layers[0]
+    two_conv = spec0.conv_steps == 2
     if s2d:
-        spec0 = cfg.model.layers[0]
-        if spec0.conv_steps != 1 or (spec0.kH, spec0.kW, spec0.padH,
-                                     spec0.padW) != (3, 3, 1, 1):
-            raise ValueError("the s2d block0 covers one 3x3/1/1 conv; the "
-                             "2-conv first block is a later slice")
+        if spec0.conv_steps not in (1, 2) or (spec0.kH, spec0.kW, spec0.padH,
+                                              spec0.padW) != (3, 3, 1, 1):
+            raise ValueError("the s2d block0 covers a first block of one or "
+                             "two 3x3/1/1 convs")
         if gen.image_hw[0] % 2 or gen.image_hw[1] % 2:
             raise ValueError("the s2d layout needs an even-sized bucket")
     if kernels:
         batched_nms = nms_kernel.cuda_nms
         batched_pool = roi_pool_kernel.adaptive_max_pool_valid
-        block0 = block0_kernel.fused_block0
+        block0 = (block0_2conv_kernel.fused_block0_2conv if two_conv
+                  else block0_kernel.fused_block0)
     else:
         batched_nms = nms_plain.nms
         batched_pool = pool_plain.adaptive_max_pool
-        block0 = block0_kernel.block0_plain
+        block0 = (block0_2conv_kernel.block0_2conv_plain if two_conv
+                  else block0_kernel.block0_plain)
     norm_kw = dict(method=cfg.normalization.method,
                    width=cfg.normalization.width,
                    centering=cfg.normalization.centering,
@@ -141,9 +151,8 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         if s2d:
             lum4, chroma = normalize_s2d(images[0].float(), images[1].float(),
                                          h, w, **norm_kw)
-            w27, b0_bias, b0_slope = block0_params
             b0 = block0(lum4.to(cdt).contiguous(), chroma.to(cdt).contiguous(),
-                        w27, b0_bias, b0_slope)
+                        *block0_params)
             if stop_after == "b0":
                 return _cut_sum(b0)
             anchor_maps, fm = pnet(None, block0_out=b0)
@@ -227,7 +236,9 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
 
 
 class Detector:
-    """The detect program for one config, on one device.
+    """The detect programs for one config, on one device: one per
+    configured bucket (``cfg.shapes.buckets()``), the primary bucket's
+    built at once, a portrait bucket's at its first batch.
 
     ``pnet``/``cnet``: the port's float32 modules with their weights
     loaded (for example from ``utils/weights.py::from_jax_params``). The
@@ -244,21 +255,49 @@ class Detector:
         dt = compute_dtype(cfg)
         self.pnet = for_compute(pnet, dt, self.device)
         self.cnet = for_compute(cnet, dt, self.device)
-        self.gen = AnchorGenerator(cfg)
         self.block0_params = None
         if cfg.input_layout == "s2d":
-            # from the float32 modules: the kernel takes a float32 bias
-            conv0 = pnet.block0_conv0
-            w27, bias = block0_kernel.block0_weights(
-                conv0.weight.detach().to(self.device),
-                conv0.bias.detach().to(self.device), dt)
-            slope = pnet.block0_prelu0.weight.detach().float()
-            self.block0_params = (w27, bias,
-                                  slope.reshape(1).to(self.device))
+            # from the float32 modules: the kernels take float32 biases
+            def param(name):
+                return getattr(pnet, name).weight.detach().to(self.device)
+
+            def bias(name):
+                return getattr(pnet, name).bias.detach().to(self.device)
+
+            if cfg.model.layers[0].conv_steps == 2:
+                self.block0_params = block0_2conv_kernel.block0_2conv_weights(
+                    param("block0_conv0"), bias("block0_conv0"),
+                    param("block0_conv1"), bias("block0_conv1"),
+                    param("block0_prelu0").float(),
+                    param("block0_prelu1").float(), dt)
+            else:
+                w27, b = block0_kernel.block0_weights(
+                    param("block0_conv0"), bias("block0_conv0"), dt)
+                self.block0_params = (
+                    w27, b, param("block0_prelu0").float().reshape(1))
         self.last_counts = {}
-        self._detect = build_detect_fn(cfg, self.gen, self.pnet, self.cnet,
-                                       self.device, self.block0_params,
-                                       counts=self.last_counts)
+        self._programs = {}
+        self.gen = AnchorGenerator(cfg)
+        self._programs[tuple(self.gen.image_hw)] = self._build(self.gen)
+
+    def _build(self, gen: AnchorGenerator):
+        return build_detect_fn(self.cfg, gen, self.pnet, self.cnet,
+                               self.device, self.block0_params,
+                               counts=self.last_counts)
+
+    def _program_for(self, image_hw):
+        """The detect program of bucket ``image_hw`` (H, W), built at its
+        first use; a size outside the configured buckets raises
+        ``ValueError``."""
+        hw = tuple(int(x) for x in image_hw)
+        if hw not in self._programs:
+            buckets = [tuple(b) for b in self.cfg.shapes.buckets()]
+            if hw not in buckets:
+                raise ValueError(f"image bucket {hw} is not one of the "
+                                 f"configured buckets {buckets}")
+            self._programs[hw] = self._build(
+                AnchorGenerator(self.cfg, image_hw=hw))
+        return self._programs[hw]
 
     def detect(self, images, true_hw) -> DetectionResult:
         """``images``: NHWC [B, H, W, 3] (numpy or tensor; uint8 RGB or
@@ -266,20 +305,26 @@ class Detector:
         the space-to-depth pack runs where the frames are: on the host
         (numpy) for numpy or CPU frames, before the transfer; on the card
         for CUDA frames. An already-packed (lum4, chroma) pair is taken as
-        is."""
+        is. The batch goes to the program of its bucket: H and W of the
+        frames, or ((Hc-1)*2, (Wc-1)*2) of a packed pair."""
         true_hw = torch.as_tensor(true_hw).to(self.device)
         if self.cfg.input_layout == "s2d":
             if isinstance(images, (tuple, list)):
                 lum4, chroma = images
+                hw = ((chroma.shape[1] - 1) * 2, (chroma.shape[3] - 1) * 2)
             elif isinstance(images, torch.Tensor):
+                hw = images.shape[1:3]
                 x = unwire_uint8(images, self.cfg.color_space)
                 lum4, chroma = block0_kernel.pack_s2d(x.float())
             else:
+                hw = np.shape(images)[1:3]
                 x = unwire_uint8(np.asarray(images), self.cfg.color_space)
                 lum4, chroma = block0_kernel.pack_s2d_np(
                     np.asarray(x, np.float32))
+            fn = self._program_for(hw)
             lum4 = torch.as_tensor(lum4).to(self.device, non_blocking=True)
             chroma = torch.as_tensor(chroma).to(self.device,
                                                 non_blocking=True)
-            return self._detect((lum4, chroma), true_hw)
-        return self._detect(torch.as_tensor(images).to(self.device), true_hw)
+            return fn((lum4, chroma), true_hw)
+        fn = self._program_for(np.shape(images)[1:3])
+        return fn(torch.as_tensor(images).to(self.device), true_hw)

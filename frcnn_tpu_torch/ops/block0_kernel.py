@@ -46,9 +46,15 @@ def pack_s2d(x):
     if C != 3 or H % 2 or W % 2:
         raise ValueError(f"pack_s2d needs [B, even H, even W, 3], got "
                          f"{tuple(x.shape)}")
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    Hc, Wc = (H + 2) // 2, (W + 2) // 2
-    ph = xp.reshape(B, Hc, 2, Wc, 2, 3)
+    return pack_padded(F.pad(x, (0, 0, 1, 1, 1, 1)))
+
+
+def pack_padded(p):
+    """The planes of an already padded NHWC image P [B, H+2, W+2, 3],
+    whose pad ring need not be zero (the inverse of :func:`unpack_s2d`)."""
+    B, Hp, Wp, _ = p.shape
+    Hc, Wc = Hp // 2, Wp // 2
+    ph = p.reshape(B, Hc, 2, Wc, 2, 3)
     lum4 = ph[..., 0].permute(0, 2, 4, 1, 3).reshape(B, 4, Hc, Wc)
     chroma = ph[..., 1:].permute(0, 1, 2, 4, 5, 3).reshape(B, Hc, 8, Wc)
     return lum4.contiguous(), chroma.contiguous()

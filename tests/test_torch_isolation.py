@@ -15,6 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "frcnn_tpu")
 WRAPPERS = ("frcnn_tpu_torch.ops.nms_kernel",
             "frcnn_tpu_torch.ops.roi_pool_kernel",
             "frcnn_tpu_torch.ops.block0_kernel",
+            "frcnn_tpu_torch.ops.block0_2conv_kernel",
             "frcnn_tpu_torch.ops.pool_bwd_kernel")
 
 
