@@ -11,6 +11,13 @@ Phases, each printing one flushed line with its seconds:
            times of kernel, plain version and, where one PyTorch call
            computes the same function, that call; the 2-conv block0 kernel
            in both vgg_large buckets (timed at 480x1000)
+  kernels-int8  the int8 modes of the two block0 kernels against their
+           plain versions at the int8 path's shapes, float32 and bf16
+           planes with a random pad ring: block0's int8 output, the 2-conv
+           block0's int8 conv1 (float and int8 output) and its float conv1
+           with an int8 output; int8 outputs at most one step apart in
+           under 1% of the values (the flip rate is printed); times beside
+           the float modes' on the same planes, and bounds
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
@@ -27,6 +34,22 @@ Phases, each printing one flushed line with its seconds:
            the launch counts of every kernel read around them (the 2-conv
            block0 kernel's above 0 in both buckets)
   profile-large  the profile phase's breakdown for a vgg_large bf16 batch
+  detect-int8  the int8 serving Detector (quantized, static scales
+           calibrated on one normalized batch of the smoke's frames, the
+           s8-pooled chain) of vgg_small (the detect phase's weights,
+           450x800) and of vgg_large (seeded, both buckets), batch 8:
+           float32 through the kernels against float32 through the plain
+           versions, block 0's output compared at the int8 tolerance and
+           then handed to both, detections matched by class and box; the
+           share of detections that agree without that hand-over; bf16
+           ms/batch and img/s from packed device planes with the launch
+           counts (1 of the family's int8 block0 kernel per call, 0 of the
+           float block0 modes), and the share of the float path's
+           detections the int8 path matches (class, IoU >= 0.5)
+  profile-int8  device time of an int8 bf16 batch of each family by
+           kernel group, and each int8 conv layer group (quantize, im2col,
+           torch._int_mm, dequantize) timed beside the bf16 cuDNN
+           convolutions of the float path at the same shapes
   train-kernels  the two training kernels against their plain versions at
            the train step's shapes (ROI-pool backward within its stated
            tolerance; first-max pool backward bitwise, also against the
@@ -48,6 +71,7 @@ never falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import importlib
@@ -79,7 +103,8 @@ KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
 HBM_BPS = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+            torch.int8: 1979e12}
 
 
 def log(phase: str, msg: str, t_start: float) -> None:
@@ -110,8 +135,14 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
 def bound_ms(n_bytes: float, n_ops: float, dtype):
     """Least time for the work: the larger of bytes over HBM rate and
     operations over the type's peak. Returns (ms, 'bytes'|'operations')."""
+    return bound_ms_of(n_bytes, {dtype: n_ops})
+
+
+def bound_ms_of(n_bytes: float, ops: dict):
+    """:func:`bound_ms` for work of several types: ``ops`` {dtype:
+    operations}, each at its own peak."""
     t_bytes = n_bytes / HBM_BPS * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_OPS[dt] for dt, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -143,8 +174,10 @@ def phase_build():
     for ln in (path.parent / "nvcc.log").read_text().splitlines():
         if "Compiling entry function" in ln:
             k = cuda_lib.ptxas_entry(ln)
-            kernel = ln.split("'")[1] if k is None else k.name
-            kernel += " bf16" if "bfloat16" in ln else ""
+            kernel = ln.split("'")[1] if k is None else k.entry
+            if k is not None:   # the instance's mangled template arguments
+                args = ln.split(k.entry, 1)[1]
+                kernel += " " + args.split("EEv")[0] if args[:1] == "I" else ""
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "registers" in ln:
@@ -386,17 +419,195 @@ def check_block0_2conv(gen):
             f"ms, bound {bms:.5f} ms ({by})", t)
         del got, xi
         torch.cuda.empty_cache()
-    return res[torch.bfloat16]
+    return res
 
 
 def phase_kernels():
+    """Returns (the kernels' bf16 numbers by name, the 2-conv block0's by
+    dtype)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    return {"nms_keep_mask": check_nms(gen),
-            "roi_pool": check_roi_pool(gen),
-            "fused_block0": check_block0(gen),
-            "fused_block0_2conv": check_block0_2conv(gen)}
+    res = {"nms_keep_mask": check_nms(gen),
+           "roi_pool": check_roi_pool(gen),
+           "fused_block0": check_block0(gen)}
+    two_conv = check_block0_2conv(gen)
+    res["fused_block0_2conv"] = two_conv[torch.bfloat16]
+    return res, two_conv
+
+
+# -- kernels-int8 -------------------------------------------------------------
+
+def _inv(s):
+    """float32 [1] reciprocal 1/s on the card (a true division)."""
+    return torch.ones(1, device="cuda") / s.reshape(1)
+
+
+def _absmax_scale(x):
+    """abs-max / 127 of ``x`` as a float32 0-dim tensor on the card."""
+    return x.float().abs().amax() / torch.full((), 127.0, device="cuda")
+
+
+def _flips(got, ref, what: str):
+    """int8 outputs at most one step apart in under 1% of the values: a
+    float32 sum taken in another order may move a value across a rounding
+    boundary. Returns (largest step, share of values apart)."""
+    d = (got.int() - ref.int()).abs()
+    step, share = int(d.max()), float((d > 0).float().mean())
+    if step > 1 or share >= 0.01:
+        raise AssertionError(f"{what}: int8 outputs {step} steps apart in "
+                             f"{100 * share:.4f}% of the values")
+    return step, share
+
+
+def check_block0_s8out(gen):
+    from frcnn_tpu_torch.ops import block0_kernel as K
+
+    t = time.perf_counter()
+    H, W = IMAGE_HW
+    Fo = 64
+    planes = K.pack_padded(torch.randn(B, H + 2, W + 2, 3,
+                                       generator=gen).cuda())
+    w = (torch.randn(Fo, 3, 3, 3, generator=gen) * 0.3).cuda()
+    bias = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+    slope = torch.tensor([0.25], device="cuda")
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        w27, b32 = K.block0_weights(w, bias, dt)
+        l, c = (x.to(dt) for x in planes)
+        inv = _inv(_absmax_scale(K.block0_plain(l, c, w27, b32, slope)))
+        got = K.fused_block0(l, c, w27, b32, slope, inv_out=inv)
+        torch.cuda.synchronize()
+        ref = K.block0_plain(l, c, w27, b32, slope, inv_out=inv)
+        step, share = _flips(got, ref, f"block0_s8out {str(dt)[6:]}")
+        ms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope,
+                                            inv_out=inv))
+        fms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope))
+        pms = time_ms(lambda: K.block0_plain(l, c, w27, b32, slope,
+                                             inv_out=inv), reps=10)
+        n_ops = 2.0 * B * (H // 2) * (W // 2) * Fo * 4 * 27
+        n_bytes = (l.numel() + c.numel() + w27.numel()) * l.element_size() \
+            + got.numel() + 4 * (Fo + 2)
+        bms, by = bound_ms(n_bytes, n_ops, dt)
+        res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                   "bound_by": by, "max_abs_err": float(step),
+                   "library_ms": None}
+        log("kernels-int8", f"block0_s8out {str(dt)[6:]} B={B} {H}x{W} "
+            f"(random pad ring): int8 out {step} step apart in "
+            f"{100 * share:.5f}% of {got.numel()} values; kernel {ms:.4f} "
+            f"ms (float output mode {fms:.4f} ms), plain {pms:.3f} ms, bound "
+            f"{bms:.5f} ms ({by}); no single PyTorch call computes it", t)
+    return res[torch.bfloat16]
+
+
+def _int8_conv1_values(K, l, c, qa, ws, inv_y, s_y, w1, what):
+    """The int8-conv1 kernel with a float output against its plain
+    version: beyond the float tolerance (float32 1e-4 of the largest
+    output, bf16 2 ulps of it) under 1% of the values, each within 9 y0
+    steps (9 taps of one flipped y0 value: 9 * s_y * max|w1|)."""
+    got = K.fused_block0_2conv(l, c, *qa, w1_scale=ws, inv_y=inv_y)
+    torch.cuda.synchronize()
+    ref = K.block0_2conv_plain(l, c, *qa, w1_scale=ws, inv_y=inv_y)
+    err = (got.float() - ref.float()).abs()
+    peak = float(ref.float().abs().max())
+    tol = 1e-4 * peak if l.dtype == torch.float32 else 2 * _bf16_ulp(peak)
+    share = float((err > tol).float().mean())
+    lim = tol + 9 * float(s_y) * float(w1.abs().max())
+    if share >= 0.01 or float(err.max()) > lim:
+        raise AssertionError(f"{what} float out: {100 * share:.4f}% of the "
+                             f"values beyond {tol:.3g}, max abs err "
+                             f"{float(err.max()):.3g} (limit {lim:.3g})")
+    return ref, float(err.max()), share
+
+
+def check_block0_2conv_int8(gen, float_res):
+    from frcnn_tpu_torch.models.quant import quantize_weight
+    from frcnn_tpu_torch.ops import block0_2conv_kernel as K
+    from frcnn_tpu_torch.ops.block0_kernel import pack_padded, unpack_s2d
+
+    t = time.perf_counter()
+    Fo = 64
+    P = {hw: torch.randn(B, hw[0] + 2, hw[1] + 2, 3, generator=gen).cuda()
+         for hw in LARGE_HW}
+    std = (2.0 / (9 * Fo)) ** 0.5
+    w0 = (torch.randn(Fo, 3, 3, 3, generator=gen) * std).cuda()
+    w1 = (torch.randn(Fo, Fo, 3, 3, generator=gen) * std).cuda()
+    b0 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+    b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+    w1q, s_w = quantize_weight(w1)
+    s0, s1 = 0.25, 0.1
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
+        for hw in (LARGE_HW[1], LARGE_HW[0]):
+            t = time.perf_counter()
+            H, W = hw
+            l, c = (x.to(dt) for x in pack_padded(P[hw]))
+            y0 = F.conv2d(unpack_s2d(l, c).float(), p.w0.float().reshape(
+                3, 3, 3, Fo).permute(3, 2, 0, 1), p.b0)
+            s_y = _absmax_scale(torch.where(y0 >= 0, y0, s0 * y0))
+            del y0
+            wq9, ws = K.block0_2conv_weights_q(w1q, s_w, s_y)
+            qa = (p.w0, p.b0, wq9, p.b1, p.slopes)
+            inv_y = _inv(s_y)
+            what = f"block0_2conv_int8 {str(dt)[6:]} {H}x{W}"
+            fl, ferr, fshare = _int8_conv1_values(K, l, c, qa, ws, inv_y,
+                                                  s_y, w1, what)
+            inv_o = _inv(_absmax_scale(fl))
+            del fl
+            got = K.fused_block0_2conv(l, c, *qa, w1_scale=ws, inv_y=inv_y,
+                                       inv_out=inv_o)
+            torch.cuda.synchronize()
+            step, share = _flips(got, K.block0_2conv_plain(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y, inv_out=inv_o), what)
+            fo = K.fused_block0_2conv(l, c, *p, inv_out=inv_o)
+            torch.cuda.synchronize()
+            fstep, fo_share = _flips(fo, K.block0_2conv_plain(
+                l, c, *p, inv_out=inv_o), f"{what} float conv1, int8 out")
+            msg = (f"{what} (random pad ring): float out {100 * fshare:.4f}% "
+                   f"of values beyond the float tolerance, max abs err "
+                   f"{ferr:.3g}; int8 out {step} step apart in "
+                   f"{100 * share:.5f}% of {got.numel()} values; float conv1 "
+                   f"with int8 out {fstep} step apart in "
+                   f"{100 * fo_share:.5f}%")
+            if hw != LARGE_HW[0]:
+                log("kernels-int8", msg, t)
+                continue
+            run = lambda: K.fused_block0_2conv(l, c, *qa, w1_scale=ws,
+                                               inv_y=inv_y, inv_out=inv_o)
+            ms = time_ms(run)
+            f_ms = time_ms(lambda: K.fused_block0_2conv(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y))
+            fo_ms = time_ms(lambda: K.fused_block0_2conv(l, c, *p,
+                                                         inv_out=inv_o))
+            pms = time_ms(lambda: K.block0_2conv_plain(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y, inv_out=inv_o), reps=5,
+                warmup=1)
+            n_pix = float(B * H * W)
+            ops = {dt: 2.0 * n_pix * Fo * 27,
+                   torch.int8: 2.0 * n_pix * Fo * 9 * Fo}
+            n_bytes = (l.numel() + c.numel() + p.w0.numel()) \
+                * l.element_size() + wq9.numel() + got.numel() \
+                + 4 * (3 * Fo + 4)
+            bms, by = bound_ms_of(n_bytes, ops)
+            res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                       "bound_by": by, "max_abs_err": float(step),
+                       "library_ms": None}
+            log("kernels-int8", f"{msg}; kernel {ms:.4f} ms (int8 conv1 "
+                f"with float out {f_ms:.4f} ms; float conv1 with int8 out "
+                f"{fo_ms:.4f} ms; float mode "
+                f"{float_res[dt]['ms']:.4f} ms in [kernels]), plain "
+                f"{pms:.3f} ms, bound {bms:.5f} ms ({by}); no single "
+                f"PyTorch call computes it", t)
+            del got, fo
+            torch.cuda.empty_cache()
+    return res[torch.bfloat16]
+
+
+def phase_kernels_int8(float_2conv):
+    gen = torch.Generator().manual_seed(2)
+    return {"block0_s8out": check_block0_s8out(gen),
+            "block0_2conv_int8": check_block0_2conv_int8(gen, float_2conv)}
 
 
 # -- detect -------------------------------------------------------------------
@@ -458,7 +669,7 @@ def _seeded_models(cfg, seed: int = 0, cls_spread: float = 20.0):
     return pnet, cnet
 
 
-def _load_models():
+def _load_models(phase: str = "detect"):
     from frcnn_tpu_torch.config import Config, duplo_config, serving_config
     from frcnn_tpu_torch.models.factory import create_models
     from frcnn_tpu_torch.utils.serialization import load_checkpoint
@@ -477,7 +688,7 @@ def _load_models():
         cnet.load_state_dict(state["cnet"])
         src = f"{CKPT.relative_to(ROOT)} (step {payload['step']})"
     else:
-        print(f"[detect] {CKPT.relative_to(ROOT)} is absent: seeded "
+        print(f"[{phase}] {CKPT.relative_to(ROOT)} is absent: seeded "
               f"initialisation at the same widths", flush=True)
         base = duplo_config(class_count=6)
         cfg = serving_config(base.replace(shapes=dataclasses.replace(
@@ -485,7 +696,7 @@ def _load_models():
         pnet, cnet = _seeded_models(cfg)
         src = "seeded initialisation (torch.Generator seed 0)"
     cfg = cfg.replace(detect_fg_threshold=0.5)
-    log("detect", f"weights from {src}; {cfg.model.name}, "
+    log(phase, f"weights from {src}; {cfg.model.name}, "
         f"{cfg.class_count} classes, bucket {cfg.shapes.image_hw}", t)
     return cfg, pnet, cnet
 
@@ -610,14 +821,17 @@ def phase_detect(kernels):
 
 
 PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
+    ("block0_2conv_kernel<__nv_bfloat16, true", "block0_2conv int8 kernel"),
     ("block0_2conv_kernel", "block0_2conv kernel"),
+    ("block0_kernel<__nv_bfloat16, signed char", "block0 s8out kernel"),
     ("block0_kernel", "block0 kernel"), ("nms_keep_kernel", "nms kernel"),
     ("roi_pool_bwd_kernel", "roi_pool_bwd kernel"),
     ("pool_bwd_kernel", "pool_bwd kernel"),
     ("roi_pool_kernel", "roi_pool kernel"), ("max_pool", "max pool"),
     ("conv", "convolution"), ("fprop", "convolution"),
     ("dgrad", "convolution"), ("wgrad", "convolution"),
-    ("gemm", "matmul"), ("sort", "sort"), ("Sort", "sort"),
+    ("gemm_s8", "int8 matmul"), ("gemm", "matmul"), ("sort", "sort"),
+    ("Sort", "sort"),
     ("foreach", "optimizer (foreach)"), ("index", "index/scatter"),
     ("scatter", "index/scatter"), ("gather", "index/scatter"),
     ("reduce", "reductions"), ("elementwise", "elementwise"),
@@ -782,6 +996,282 @@ def phase_detect_large(kernels):
                 lambda: det.detect(*planes[LARGE_HW[0]]), "batch")
     del det, planes
     torch.cuda.empty_cache()
+
+
+# -- detect-int8 --------------------------------------------------------------
+
+INT8_CALLS = 5
+
+
+@contextlib.contextmanager
+def _block0_hook(fn):
+    """Detect calls inside the block get block 0's output from
+    ``fn(compute_s2d_block0, *args, **kwargs)``."""
+    from frcnn_tpu_torch.detect import detector as D
+
+    real = D.compute_s2d_block0
+    D.compute_s2d_block0 = lambda *a, **k: fn(real, *a, **k)
+    try:
+        yield
+    finally:
+        D.compute_s2d_block0 = real
+
+
+def _match_share(ref, got, iou_min: float = 0.5) -> str:
+    """Share of ``ref``'s detections that ``got`` has in the same image,
+    of the same class, at IoU >= ``iou_min``, as text ("hits/n = share")."""
+    from frcnn_tpu_torch.geometry.boxes import iou_matrix
+
+    n = hit = 0
+    for i in range(ref.valid.shape[0]):
+        rv, gv = ref.valid[i], got.valid[i]
+        n += int(rv.sum())
+        if not (rv.any() and gv.any()):
+            continue
+        same = ref.classes[i][rv][:, None] == got.classes[i][gv][None, :]
+        iou = iou_matrix(ref.boxes[i][rv].float(), got.boxes[i][gv].float())
+        hit += int(((iou >= iou_min) & same).any(dim=1).sum())
+    return f"{hit}/{n} = {hit / n:.4f}" if n else "0/0"
+
+
+def _int8_batches(cfg, seed: int, buckets):
+    """Per bucket: (packed device planes, true_hw on the card) of the
+    smoke's frames; and one normalized NHWC batch of other frames of the
+    first bucket, the calibration batch."""
+    from frcnn_tpu_torch.ops import block0_kernel
+    from frcnn_tpu_torch.ops.color import unwire_uint8
+    from frcnn_tpu_torch.ops.normalization import normalize_image
+
+    out = {}
+    for k, hw in enumerate(buckets):
+        frames, _, _ = _frames(seed + k, B, hw)
+        planes = tuple(torch.from_numpy(a).cuda() for a in
+                       block0_kernel.pack_s2d_np(unwire_uint8(
+                           frames, cfg.color_space)))
+        out[hw] = (planes, torch.tensor([hw] * B, dtype=torch.int32,
+                                        device="cuda"))
+    frames, _, _ = _frames(seed + 100, B, buckets[0])
+    x = unwire_uint8(torch.from_numpy(frames).cuda(), cfg.color_space)
+    hw = out[buckets[0]][1]
+    n = cfg.normalization
+    calib = normalize_image(x.float(), hw[:, 0], hw[:, 1], method=n.method,
+                            width=n.width, centering=n.centering,
+                            scaling=n.scaling)
+    return out, calib
+
+
+def _check_f32_int8_detect(phase, cfg, pnet, cnet, batches, calib):
+    """float32 int8 detect through the kernels against the plain versions,
+    the kernel path's static scales in both. Block 0's int8 output of the
+    two paths is held at the int8 tolerance (at most one step apart in
+    under 1% of the values); since a single step moves every later
+    requantization, the plain path then takes the kernel path's block 0
+    output and the detections must match by class and box. Without that
+    hand-over, the share of detections that agree is printed."""
+    from frcnn_tpu_torch.detect.detector import Detector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32")
+    ker = Detector(cfg32, pnet, cnet, device="cuda", quantized=True,
+                   quant_calibration=calib)
+    ref = Detector(cfg32.replace(pallas_mode="off"), pnet, cnet,
+                   device="cuda", quantized=True)
+    ref.pnet.set_act_scales(ker.pnet.act_scales)
+    for hw, (planes, true_hw) in batches.items():
+        t = time.perf_counter()
+        seen = {}
+
+        def record(real, *a, **k):
+            seen["kernel"] = real(*a, **k)
+            return seen["kernel"]
+
+        def hand_over(real, *a, **k):
+            seen["plain"] = real(*a, **k)
+            return seen["kernel"]
+
+        with _block0_hook(record):
+            got = ker.detect(planes, true_hw)
+        with _block0_hook(hand_over):
+            want = ref.detect(planes, true_hw)
+        alone = ref.detect(planes, true_hw)
+        torch.cuda.synchronize()
+        (kb, ks), (pb, ps) = seen["kernel"], seen["plain"]
+        if not torch.equal(ks, ps):
+            raise AssertionError(f"{phase}: block 0 scales differ")
+        step, share = _flips(kb, pb, f"{phase} {hw} block 0")
+        log(phase, f"float32 B={B} {hw[0]}x{hw[1]}: block 0's int8 output "
+            f"through the kernel {step} step from the plain version's in "
+            f"{100 * share:.5f}% of {kb.numel()} values; without handing "
+            f"it over, {_match_share(got, alone)} of the kernel path's "
+            f"detections agree (class, IoU >= 0.5)", t)
+        _check_f32_detect(phase, got, want, f"{hw[0]}x{hw[1]}, block 0 "
+                          f"handed over", t, ordered=False)
+    del ker, ref
+    torch.cuda.empty_cache()
+
+
+def _int8_family(phase, cfg, pnet, cnet, seed, block0_kernel_name):
+    """One model family's int8 serving: the float32 check, then bf16
+    batches from packed device planes with launch counts, each bucket.
+    Returns (bf16 Detector, batches, launches of the int8 block0 kernel)."""
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
+    buckets = [tuple(b) for b in cfg.shapes.buckets()]
+    batches, calib = _int8_batches(cfg, seed, buckets)
+    _check_f32_int8_detect(phase, cfg, pnet, cnet, batches, calib)
+
+    t = time.perf_counter()
+    det = Detector(cfg, pnet, cnet, device="cuda", quantized=True,
+                   quant_calibration=calib)
+    fdet = Detector(cfg, pnet, cnet, device="cuda")
+    log(phase, f"bf16 Detector calibrated: {len(det.pnet.act_scales)} "
+        f"static scales, pool_s8 {det.pnet.pool_s8}", t)
+    counted = ("nms_keep_mask", "roi_pool", "fused_block0", "block0_s8out",
+               "fused_block0_2conv", "block0_2conv_int8")
+    total = 0
+    for hw, (planes, true_hw) in batches.items():
+        t = time.perf_counter()
+        det.detect(planes, true_hw)             # warm-up
+        torch.cuda.synchronize()
+        for k in counted:
+            REGISTRY[k].launches = 0
+        t_run = time.perf_counter()
+        outs = [det.detect(planes, true_hw) for _ in range(INT8_CALLS)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) / INT8_CALLS
+        launches = {k: REGISTRY[k].launches for k in counted}
+        dev_ms = time_ms(lambda: det.detect(planes, true_hw), reps=10)
+        out = outs[-1]
+        n_in = int(det.last_counts["proposals_in"].sum())
+        n_roi = int(out.proposals_valid.sum())
+        n_det = int(out.valid.sum())
+        if not (n_in > 0 and n_roi > 0 and n_det > 0):
+            raise AssertionError(f"{phase} bf16 {hw}: empty stage (proposals "
+                                 f"{n_in}, rois {n_roi}, detections {n_det})")
+        if not all(torch.isfinite(x).all() for x in
+                   (out.boxes, out.confidence, out.fg_score, out.proposals)):
+            raise AssertionError(f"{phase} bf16 {hw}: non-finite outputs")
+        want = {k: 0 for k in counted}
+        want.update({"nms_keep_mask": 2 * INT8_CALLS, "roi_pool": INT8_CALLS,
+                     block0_kernel_name: INT8_CALLS})
+        if launches != want:
+            raise AssertionError(f"{phase} bf16 {hw}: launches {launches} in "
+                                 f"{INT8_CALLS} calls, expected {want}")
+        total += launches[block0_kernel_name]
+        share = _match_share(fdet.detect(planes, true_hw), out)
+        log(phase, f"int8 bf16 serving B={B} {hw[0]}x{hw[1]}: "
+            f"{wall * 1e3:.2f} ms/batch from packed device planes "
+            f"({B / wall:.1f} img/s) over {INT8_CALLS} calls, {dev_ms:.2f} "
+            f"ms/batch by CUDA events ({B / dev_ms * 1e3:.1f} img/s); {n_in} "
+            f"proposals into NMS, {n_roi} rois pooled, {n_det} detections; "
+            f"launches {launches}; the int8 path matches {share} of the "
+            f"float path's detections (class, IoU >= 0.5)", t)
+    del fdet
+    torch.cuda.empty_cache()
+    return det, batches, total
+
+
+def phase_detect_int8(kernels):
+    from frcnn_tpu_torch.config import imagenet_config, serving_config
+
+    cfg, pnet, cnet = _load_models("detect-int8")
+    det, batches, n = _int8_family("detect-int8", cfg, pnet, cnet, 5,
+                                   "block0_s8out")
+    kernels["block0_s8out"]["launches"] = n
+    profile_int8("vgg_small", det, batches[IMAGE_HW])
+    del det, batches
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cfg = serving_config(imagenet_config()).replace(detect_fg_threshold=0.5)
+    pnet, cnet = _seeded_models(cfg, cls_spread=500.0)
+    log("detect-int8", f"vgg_large: seeded initialisation (torch.Generator "
+        f"seed 0, class head x500), buckets {cfg.shapes.buckets()}", t)
+    det, batches, n = _int8_family("detect-int8", cfg, pnet, cnet, 7,
+                                   "block0_2conv_int8")
+    kernels["block0_2conv_int8"]["launches"] = n
+    profile_int8("vgg_large", det, batches[LARGE_HW[0]])
+    del det, batches
+    torch.cuda.empty_cache()
+
+
+def _conv_layers(cfg, hw):
+    """Every conv after block 0 as (group, name, NHWC input shape, kh,
+    kw, padding, outputs) at bucket ``hw``, batch B."""
+    m = cfg.model
+    sizes, (h, w) = [], hw
+    for _ in m.layers:
+        h, w = -(-h // 2), -(-w // 2)
+        sizes.append((h, w))
+    out = []
+    for bi, spec in enumerate(m.layers):
+        if bi == 0:
+            continue
+        h, w = sizes[bi - 1]
+        for si in range(spec.conv_steps):
+            cin = m.layers[bi - 1].filters if si == 0 else spec.filters
+            out.append((f"block{bi}", f"block{bi}_conv{si}", (B, h, w, cin),
+                        spec.kH, spec.kW, (spec.padH, spec.padW),
+                        spec.filters))
+    for ai, a in enumerate(m.anchor_nets):
+        h, w = sizes[a.input - 1]
+        cin = m.layers[a.input - 1].filters
+        out.append(("anchors", f"anchor{ai}_conv", (B, h, w, cin), a.kW,
+                    a.kW, (0, 0), a.n))
+        out.append(("anchors", f"anchor{ai}_out",
+                    (B, h - a.kW + 1, w - a.kW + 1, a.n), 1, 1, (0, 0), 18))
+    return out
+
+
+def profile_int8(family: str, det, batch):
+    """[profile-int8]: the int8 batch by kernel group, then each layer
+    group of int8 convolutions (quantize, im2col, torch._int_mm,
+    dequantize: ``models/quant.py::qconv``) against bf16 cuDNN
+    convolutions with bias at the same shapes (channels_last)."""
+    from frcnn_tpu_torch.models.quant import qconv
+    from frcnn_tpu_torch.ops import int8_conv
+
+    planes, true_hw = batch
+    profile_run("profile-int8", f"{family} int8 bf16 serving B={B} "
+                f"{tuple(true_hw[0].tolist())}",
+                lambda: det.detect(planes, true_hw), "batch")
+    t = time.perf_counter()
+    gen = torch.Generator().manual_seed(3)
+    groups = {}
+    for group, name, shape, kh, kw, (ph, pw), n in _conv_layers(
+            det.cfg, tuple(true_hw[0].tolist())):
+        layer = det.pnet.convs[name]
+        x = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+        s = _absmax_scale(x)
+        pad = ((ph, ph), (pw, pw))
+        xq = torch.clamp(torch.round(x.float() / s), -127, 127).to(
+            torch.int8)
+        cols = int8_conv.im2col(xq, kh, kw, pad)
+        t_q = time_ms(lambda: qconv(x, layer, pad, torch.bfloat16, s_x=s),
+                      reps=5)
+        t_col = time_ms(lambda: int8_conv.im2col(xq, kh, kw, pad), reps=5)
+        t_mm = time_ms(lambda: torch._int_mm(cols, layer.wmat.t()), reps=5)
+        xb = x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wb = layer.w_int8.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = layer.bias.to(torch.bfloat16)
+        t_bf = time_ms(lambda: F.conv2d(xb, wb, bb, padding=(ph, pw)),
+                       reps=5)
+        g = groups.setdefault(group, [0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, t_q, t_col, t_mm, t_bf)):
+            g[i] += v
+        del x, xq, cols, xb
+    torch.cuda.empty_cache()
+    for group, (n, t_q, t_col, t_mm, t_bf) in groups.items():
+        print(f"[profile-int8] {family} {group} ({n} convs): int8 qconv "
+              f"{t_q:.4f} ms (im2col {t_col:.4f}, _int_mm {t_mm:.4f}) vs bf16 "
+              f"cuDNN conv+bias {t_bf:.4f} ms", flush=True)
+    tot = [sum(g[i] for g in groups.values()) for i in range(5)]
+    log("profile-int8", f"{family} convs after block 0: int8 {tot[1]:.4f} "
+        f"ms/batch vs bf16 {tot[4]:.4f} ms/batch", t)
 
 
 # -- train kernels --------------------------------------------------------------
@@ -1063,9 +1553,11 @@ def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     name, smi = phase_env()
     phase_build()
-    kernels = phase_kernels()
+    kernels, two_conv = phase_kernels()
+    kernels.update(phase_kernels_int8(two_conv))
     phase_detect(kernels)
     phase_detect_large(kernels)
+    phase_detect_int8(kernels)
     kernels.update(phase_train_kernels())
     phase_train(kernels)
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY

@@ -8,8 +8,9 @@ package. Fields that select TPU code paths (``pallas_mode``,
 ``s2d_block0_layout``, ``remat``) are carried for schema compatibility; the
 port reads ``pallas_mode`` ("off" runs the plain PyTorch versions of the
 kernels everywhere, anything else the hand-written CUDA kernels on CUDA
-tensors) and ``input_layout``; the training objective refuses ``remat``
-(not ported yet).
+tensors), ``input_layout``, and for the int8 serving chain
+``quant_pool_s8`` and ``s2d_block0_int8``; the training objective refuses
+``remat`` (not ported yet).
 """
 
 from __future__ import annotations
@@ -301,8 +302,10 @@ def serving_config(base: Config = None, **overrides) -> Config:
     """The serving form of ``base`` (default :func:`duplo_config`): kernels
     on, host-packed space-to-depth input where the first block is a
     3x3/1/1 block of 1 or 2 convs and every bucket is even-sized, and the
-    int8 s8-pooled flag set (the port's int8 chain is a later slice; its
-    ``Detector`` serves the float path)."""
+    int8 s8-pooled flag set: with it, ``Detector(..., quantized=True,
+    quant_calibration=...)`` serves the full int8 stack (static scales,
+    int8 pooling, block 0's int8 kernel modes); without ``quantized`` the
+    ``Detector`` serves the float path."""
     cfg = base if base is not None else duplo_config()
     spec0 = cfg.model.layers[0]
     s2d_ok = (

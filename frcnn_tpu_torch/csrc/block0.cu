@@ -13,6 +13,14 @@
 // Output: NHWC [B, Hc-1, Wc-1, F] in the input dtype (bf16 or f32), which
 // is the channels_last layout block 1's convolution reads directly.
 //
+// int8 output mode (the Pallas kernel's `out_scale`, pallas_block0.py:99-102,
+// the int8 serving chain): the pooled float32 value m is quantized in
+// registers as clip(rint(m * inv_out), -127, 127), with inv_out the float32
+// reciprocal 1/s of the next conv's input scale: the product is rounded
+// once (__fmul_rn, nothing to contract), rintf rounds half to even as
+// jnp.round does, and the clip comes before the conversion. The output is
+// then NHWC int8, a quarter of the bf16 bytes.
+//
 // Bound on the H100: operations. Per output pixel 4 phases x 27 taps x F
 // multiply-adds (F=64: 13.8 kFLOP) against 48 input values read and F
 // values written, about 1.24 GFLOP per 450x800 image. On CUDA cores
@@ -45,7 +53,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void store_group(float* dst, const float* v) {
+__device__ __forceinline__ void store_group(float* dst, const float* v,
+                                            float /*inv*/) {
   float4* d = reinterpret_cast<float4*>(dst);
 #pragma unroll
   for (int k = 0; k < kGroup / 4; ++k)
@@ -53,7 +62,7 @@ __device__ __forceinline__ void store_group(float* dst, const float* v) {
 }
 
 __device__ __forceinline__ void store_group(__nv_bfloat16* dst,
-                                            const float* v) {
+                                            const float* v, float /*inv*/) {
   uint4* d = reinterpret_cast<uint4*>(dst);
 #pragma unroll
   for (int k = 0; k < kGroup / 8; ++k) {
@@ -68,11 +77,32 @@ __device__ __forceinline__ void store_group(__nv_bfloat16* dst,
   }
 }
 
-template <typename T>
+// clip(round(m * inv), -127, 127), round half to even
+__device__ __forceinline__ uint32_t quant8(float m, float inv) {
+  const float q = fminf(fmaxf(rintf(__fmul_rn(m, inv)), -127.0f), 127.0f);
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
+}
+
+__device__ __forceinline__ void store_group(int8_t* dst, const float* v,
+                                            float inv) {
+  uint32_t packed[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    packed[q] = quant8(v[4 * q], inv) | (quant8(v[4 * q + 1], inv) << 8) |
+                (quant8(v[4 * q + 2], inv) << 16) |
+                (quant8(v[4 * q + 3], inv) << 24);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
+// T: the planes' and weights' type; O: the output's (T, or int8 with
+// inv_out, which is unused otherwise)
+template <typename T, typename O>
 __global__ void __launch_bounds__(kPix)
 block0_kernel(const T* __restrict__ lum4, const T* __restrict__ chroma,
               const T* __restrict__ w27, const float* __restrict__ bias,
-              const float* __restrict__ slope, T* __restrict__ out, int Hc,
+              const float* __restrict__ slope,
+              const float* __restrict__ inv_out, O* __restrict__ out, int Hc,
               int Wc, int F) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [27][F]
@@ -87,6 +117,7 @@ block0_kernel(const T* __restrict__ lum4, const T* __restrict__ chroma,
   const int b = blockIdx.z;
   if (j >= Wo) return;
   const float a = slope[0];
+  const float inv = inv_out != nullptr ? inv_out[0] : 0.0f;
 
   // patch[yy][xx][c] = P[2i+yy, 2j+xx, c], yy = 2cy+qy, xx = 2cx+qx
   float patch[4][4][3];
@@ -108,7 +139,7 @@ block0_kernel(const T* __restrict__ lum4, const T* __restrict__ chroma,
                 chroma[(((size_t)b * Hc + I) * 8 + 2 * ph + c - 1) * Wc + J]);
         }
 
-  T* dst = out + (((size_t)b * Ho + i) * Wo + j) * F;
+  O* dst = out + (((size_t)b * Ho + i) * Wo + j) * F;
 #pragma unroll 1
   for (int og = 0; og < F; og += kGroup) {
     float m[kGroup];
@@ -146,29 +177,30 @@ block0_kernel(const T* __restrict__ lum4, const T* __restrict__ chroma,
           m[k] = fmaxf(m[k], act);
         }
       }
-    store_group(dst + og, m);
+    store_group(dst + og, m, inv);
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch(const void* lum4, const void* chroma, const void* w27,
-           const void* bias, const void* slope, void* out, int batch, int Hc,
-           int Wc, int F, void* stream) {
+           const void* bias, const void* slope, const void* inv_out,
+           void* out, int batch, int Hc, int Wc, int F, void* stream) {
   const int Ho = Hc - 1, Wo = Wc - 1;
   if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
   if (F % kGroup != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)28 * F * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        block0_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        block0_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Wo + kPix - 1) / kPix, Ho, batch);
-  block0_kernel<T><<<grid, kPix, smem, (cudaStream_t)stream>>>(
+  block0_kernel<T, O><<<grid, kPix, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(lum4), static_cast<const T*>(chroma),
       static_cast<const T*>(w27), static_cast<const float*>(bias),
-      static_cast<const float*>(slope), static_cast<T*>(out), Hc, Wc, F);
+      static_cast<const float*>(slope), static_cast<const float*>(inv_out),
+      static_cast<O*>(out), Hc, Wc, F);
   return (int)cudaGetLastError();
 }
 
@@ -178,14 +210,35 @@ extern "C" int frcnn_block0_f32(const void* lum4, const void* chroma,
                                 const void* w27, const void* bias,
                                 const void* slope, void* out, int batch,
                                 int Hc, int Wc, int F, void* stream) {
-  return launch<float>(lum4, chroma, w27, bias, slope, out, batch, Hc, Wc, F,
-                       stream);
+  return launch<float, float>(lum4, chroma, w27, bias, slope, nullptr, out,
+                              batch, Hc, Wc, F, stream);
 }
 
 extern "C" int frcnn_block0_bf16(const void* lum4, const void* chroma,
                                  const void* w27, const void* bias,
                                  const void* slope, void* out, int batch,
                                  int Hc, int Wc, int F, void* stream) {
-  return launch<__nv_bfloat16>(lum4, chroma, w27, bias, slope, out, batch, Hc,
-                               Wc, F, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(lum4, chroma, w27, bias, slope,
+                                              nullptr, out, batch, Hc, Wc, F,
+                                              stream);
+}
+
+// int8 output (out_scale): inv_out [1] float32 = 1/s
+extern "C" int frcnn_block0_f32_s8(const void* lum4, const void* chroma,
+                                   const void* w27, const void* bias,
+                                   const void* slope, const void* inv_out,
+                                   void* out, int batch, int Hc, int Wc,
+                                   int F, void* stream) {
+  return launch<float, int8_t>(lum4, chroma, w27, bias, slope, inv_out, out,
+                               batch, Hc, Wc, F, stream);
+}
+
+extern "C" int frcnn_block0_bf16_s8(const void* lum4, const void* chroma,
+                                    const void* w27, const void* bias,
+                                    const void* slope, const void* inv_out,
+                                    void* out, int batch, int Hc, int Wc,
+                                    int F, void* stream) {
+  return launch<__nv_bfloat16, int8_t>(lum4, chroma, w27, bias, slope,
+                                       inv_out, out, batch, Hc, Wc, F,
+                                       stream);
 }

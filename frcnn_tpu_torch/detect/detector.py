@@ -21,6 +21,15 @@ versions on every device; otherwise the kernel wrappers run, which launch
 the CUDA kernels on CUDA tensors and the plain versions on CPU tensors.
 Unlike the JAX package, the s2d layout also runs with "off" (the plain
 block0 reads the planes too).
+
+``Detector(..., quantized=True)`` serves the int8 chain
+(``models/quant.py``): int8 weights quantized once from the float32 pnet,
+int8 activations at per-call abs-max scales, or at static scales when
+``quant_calibration`` images are given (:func:`calibrate_quantized_pnet`).
+With static scales and ``cfg.quant_pool_s8`` (the serving config's
+setting) the s2d block0 kernel emits int8 at block 1's input scale
+(:func:`compute_s2d_block0`), and the 2-conv block0 also runs its conv1
+on int8.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.geometry import boxes as B
 from frcnn_tpu_torch.geometry.anchors import AnchorGenerator
 from frcnn_tpu_torch.models.factory import compute_dtype, for_compute
+from frcnn_tpu_torch.models.quant import QuantizedPNet, quantize_pnet
 from frcnn_tpu_torch.ops import (
     block0_2conv_kernel,
     block0_kernel,
@@ -90,6 +100,92 @@ def _cut_sum(*tensors):
     return tot
 
 
+def compute_s2d_block0(cfg: Config, pnet, block0_params, lum4, chroma,
+                       allow_quant_out: bool = True):
+    """The first block from normalized planes in the compute dtype ->
+    NHWC [B, H/2, W/2, F] (``frcnn_tpu/detect/detector.py:104-191``).
+
+    ``block0_params``: (w27, bias, slope) of a one-conv first block, or
+    ``Block0TwoConvParams``, from the float32 modules. ``pnet``: a
+    ``ProposalNet`` (float modes) or a ``QuantizedPNet``. With an s8-pooled
+    ``QuantizedPNet`` whose static scales hold ``block1_conv0`` and
+    ``allow_quant_out``, the kernel quantizes its output at that scale and
+    this returns the ``(int8 NHWC, scale)`` pair block 1's conv takes as
+    it is. A 2-conv first block runs its conv1 on int8 when the scales
+    also hold ``block0_conv1`` and ``cfg.s2d_block0_int8`` is set.
+    Calibration passes ``allow_quant_out=False``, so that it records
+    scales from float activations. ``cfg.pallas_mode == "off"`` runs the
+    plain versions."""
+    kernels = cfg.pallas_mode != "off"
+    scales = getattr(pnet, "act_scales", None) or {}
+    dev = lum4.device
+
+    def inv(s):
+        return torch.ones(1, device=dev) / s.reshape(1)
+
+    s_out = None
+    if allow_quant_out and getattr(pnet, "pool_s8", False):
+        s_out = scales.get("block1_conv0")
+    quant_kw = {} if s_out is None else {"inv_out": inv(s_out)}
+    if cfg.model.layers[0].conv_steps == 2:
+        p = block0_params
+        w1, s_y = p.w1, scales.get("block0_conv1")
+        if s_y is not None and cfg.s2d_block0_int8:
+            q1 = pnet.convs["block0_conv1"]
+            w1, w1_scale = block0_2conv_kernel.block0_2conv_weights_q(
+                q1.w_int8, q1.scale, s_y)
+            quant_kw.update(w1_scale=w1_scale, inv_y=inv(s_y))
+        fn = (block0_2conv_kernel.fused_block0_2conv if kernels
+              else block0_2conv_kernel.block0_2conv_plain)
+        b0 = fn(lum4, chroma, p.w0, p.b0, w1, p.b1, p.slopes, **quant_kw)
+    else:
+        fn = (block0_kernel.fused_block0 if kernels
+              else block0_kernel.block0_plain)
+        b0 = fn(lum4, chroma, *block0_params, **quant_kw)
+    return b0 if s_out is None else (b0, s_out)
+
+
+@torch.no_grad()
+def calibrate_quantized_pnet(cfg: Config, qpnet: QuantizedPNet, pnet,
+                             block0_params, calib_images) -> None:
+    """Record static int8 scales into ``qpnet`` through the config's own
+    serving path (``frcnn_tpu/detect/detector.py:194-243``), so that each
+    conv is calibrated on what serving feeds it. ``calib_images``:
+    [N, H, W, 3] normalized images (numpy or tensor), run on the device
+    of ``qpnet``.
+
+    - NHWC layout: the dynamic quantized forward records every scale.
+    - s2d layout: the batch is packed and block0 computed by the serving
+      producer (:func:`compute_s2d_block0`, float output); the scales
+      downstream of it are recorded from that, block 0's own convs not at
+      all. A 2-conv first block also gets ``block0_conv1``'s scale (the
+      kernel's y0 quantization) from an NHWC conv0 + PReLU in the compute
+      dtype, with ``pnet``'s (compute-dtype) conv0."""
+    dev = next(qpnet.buffers()).device
+    calib = torch.as_tensor(calib_images).to(dev, torch.float32)
+    if cfg.input_layout != "s2d":
+        qpnet.calibrate(calib)
+        return
+    cdt = compute_dtype(cfg)
+    lum4, chroma = (p.to(cdt) for p in block0_kernel.pack_s2d(calib))
+    b0 = compute_s2d_block0(cfg, qpnet, block0_params, lum4, chroma,
+                            allow_quant_out=False)
+    extra = {}
+    spec0 = cfg.model.layers[0]
+    if spec0.conv_steps == 2:
+        conv0 = pnet.block0_conv0
+        x = calib.to(cdt).permute(0, 3, 1, 2)
+        y = torch.nn.functional.conv2d(x, conv0.weight.to(cdt),
+                                       padding=(spec0.padH, spec0.padW))
+        y = y + conv0.bias.to(cdt)[None, :, None, None]
+        slope = pnet.block0_prelu0.weight.reshape(()).to(cdt)
+        y = torch.where(y >= 0, y, slope * y)
+        extra["block0_conv1"] = torch.clamp_min(
+            y.abs().amax().float() / torch.full((), 127.0, device=dev),
+            1e-12)
+    qpnet.calibrate(None, block0_out=b0, extra_scales=extra)
+
+
 def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
                     device, block0_params=None,
                     stop_after: str | None = None, counts=None):
@@ -97,6 +193,7 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
 
     ``images``: NHWC [B, H, W, 3] tensor for ``input_layout='nhwc'``; the
     (lum4, chroma) plane pair for ``'s2d'``. ``true_hw``: [B, 2] tensor.
+    ``pnet``: a ``ProposalNet`` or a ``QuantizedPNet``.
     ``block0_params``: the block0 kernel's weights (s2d only): (w27, bias,
     slope) for a one-conv first block, ``Block0TwoConvParams`` for two.
     ``stop_after`` (one of :data:`STAGES`) ends the run after that stage
@@ -121,7 +218,6 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
     s2d = cfg.input_layout == "s2d"
     cdt = compute_dtype(cfg)
     spec0 = cfg.model.layers[0]
-    two_conv = spec0.conv_steps == 2
     if s2d:
         if spec0.conv_steps not in (1, 2) or (spec0.kH, spec0.kW, spec0.padH,
                                               spec0.padW) != (3, 3, 1, 1):
@@ -132,13 +228,9 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
     if kernels:
         batched_nms = nms_kernel.cuda_nms
         batched_pool = roi_pool_kernel.adaptive_max_pool_valid
-        block0 = (block0_2conv_kernel.fused_block0_2conv if two_conv
-                  else block0_kernel.fused_block0)
     else:
         batched_nms = nms_plain.nms
         batched_pool = pool_plain.adaptive_max_pool
-        block0 = (block0_2conv_kernel.block0_2conv_plain if two_conv
-                  else block0_kernel.block0_plain)
     norm_kw = dict(method=cfg.normalization.method,
                    width=cfg.normalization.width,
                    centering=cfg.normalization.centering,
@@ -151,10 +243,11 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         if s2d:
             lum4, chroma = normalize_s2d(images[0].float(), images[1].float(),
                                          h, w, **norm_kw)
-            b0 = block0(lum4.to(cdt).contiguous(), chroma.to(cdt).contiguous(),
-                        *block0_params)
+            b0 = compute_s2d_block0(cfg, pnet, block0_params,
+                                    lum4.to(cdt).contiguous(),
+                                    chroma.to(cdt).contiguous())
             if stop_after == "b0":
-                return _cut_sum(b0)
+                return _cut_sum(b0[0] if isinstance(b0, tuple) else b0)
             anchor_maps, fm = pnet(None, block0_out=b0)
         else:
             images = unwire_uint8(images, cfg.color_space)
@@ -245,11 +338,17 @@ class Detector:
     Detector keeps its own copies, on ``device`` and cast once to the
     config's compute dtype (``models/factory.py::for_compute``), so
     Detectors built on the same modules do not change each other. Entry
-    points run on CUDA unless the caller passes ``device="cpu"``. The int8
-    serving chain is a later slice.
+    points run on CUDA unless the caller passes ``device="cpu"``.
+
+    ``quantized=True`` swaps pnet for the int8 ``QuantizedPNet``, its
+    weights quantized once from ``pnet``; ``quant_calibration``: optional
+    [N, H, W, 3] normalized images from which static scales are
+    calibrated on ``device`` (else every conv takes the abs-max scale of
+    its input per call).
     """
 
-    def __init__(self, cfg: Config, pnet, cnet, device="cuda"):
+    def __init__(self, cfg: Config, pnet, cnet, device="cuda",
+                 quantized: bool = False, quant_calibration=None):
         self.cfg = cfg
         self.device = torch.device(device)
         dt = compute_dtype(cfg)
@@ -275,6 +374,14 @@ class Detector:
                     param("block0_conv0"), bias("block0_conv0"), dt)
                 self.block0_params = (
                     w27, b, param("block0_prelu0").float().reshape(1))
+        if quantized:
+            qpnet = QuantizedPNet(cfg.model, quantize_pnet(pnet), act_dtype=dt,
+                                  pool_s8=cfg.quant_pool_s8).to(self.device)
+            if quant_calibration is not None:
+                calibrate_quantized_pnet(cfg, qpnet, self.pnet,
+                                         self.block0_params,
+                                         quant_calibration)
+            self.pnet = qpnet
         self.last_counts = {}
         self._programs = {}
         self.gen = AnchorGenerator(cfg)

@@ -12,6 +12,14 @@ with P = pad(image, 1), Hc = H/2+1, Wc = W/2+1. The kernel reads them as
 never repacks. The output is NHWC ``[B, H/2, W/2, F]``; viewed as NCHW it
 is channels_last, the layout block 1's convolution reads directly.
 
+With ``inv_out`` (the ``out_scale`` mode of the Pallas kernel, the int8
+serving chain) the pooled float32 value ``m`` is quantized in the kernel
+as ``clip(round(m * inv_out), -127, 127)`` and the output is int8:
+``inv_out`` is the float32 reciprocal ``1 / s`` of the next conv's input
+scale, and the product by it (not a division by ``s``) is what the Pallas
+kernel rounds. That mode is its own ``CudaKernel`` (:data:`S8_KERNEL`),
+so its launches are counted apart.
+
 On a CPU tensor :func:`fused_block0` runs the plain version
 (:func:`block0_plain`: unpack the planes, one float32 convolution, bias,
 PReLU, pool); on a CUDA tensor it launches the kernel or raises.
@@ -37,6 +45,23 @@ KERNEL = CudaKernel(
     replaces="frcnn_tpu/ops/pallas_block0.py:58 (_kernel of fused_block0, "
              "pallas_call at :275)",
 )
+
+S8_KERNEL = CudaKernel(
+    name="block0_s8out",
+    entry="block0_kernel",
+    symbols={torch.float32: "frcnn_block0_f32_s8",
+             torch.bfloat16: "frcnn_block0_bf16_s8"},
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
+    source="frcnn_tpu_torch/csrc/block0.cu",
+    replaces="frcnn_tpu/ops/pallas_block0.py:58 (_kernel of fused_block0, "
+             "out_scale mode, :99-102; pallas_call at :275)",
+)
+
+
+def quantize_out(m, inv_out):
+    """The kernels' output quantization: ``clip(round(m * inv_out), -127,
+    127)`` as int8, ``m`` float32, ``inv_out`` [1] float32."""
+    return torch.clamp(torch.round(m * inv_out), -127, 127).to(torch.int8)
 
 
 def pack_s2d(x):
@@ -88,16 +113,19 @@ def block0_weights(w_oihw, bias, dtype):
     return w27.to(dtype).contiguous(), bias.float().contiguous()
 
 
-def block0_plain(lum4, chroma, w27, bias, slope):
+def block0_plain(lum4, chroma, w27, bias, slope, inv_out=None):
     """Plain version of the kernel: same inputs, same output. Computes in
-    float32 from the inputs as given (the compute dtype), rounds once."""
+    float32 from the inputs as given (the compute dtype), rounds once to
+    that dtype, or quantizes to int8 under ``inv_out``."""
     f = w27.shape[1]
     p = unpack_s2d(lum4, chroma).float()
     w = w27.float().reshape(3, 3, 3, f).permute(3, 2, 0, 1)
     y = F.conv2d(p, w, bias.float())
     y = torch.where(y >= 0, y, slope.float() * y)
-    y = F.max_pool2d(y, 2, 2, ceil_mode=True)
-    return y.permute(0, 2, 3, 1).to(lum4.dtype).contiguous()
+    y = F.max_pool2d(y, 2, 2, ceil_mode=True).permute(0, 2, 3, 1)
+    if inv_out is not None:
+        return quantize_out(y, inv_out).contiguous()
+    return y.to(lum4.dtype).contiguous()
 
 
 def block0_nhwc(x, w_oihw, b, slope):
@@ -111,13 +139,14 @@ def block0_nhwc(x, w_oihw, b, slope):
                                         device=x.device).reshape(1))
 
 
-def fused_block0(lum4, chroma, w27, bias, slope):
+def fused_block0(lum4, chroma, w27, bias, slope, inv_out=None):
     """lum4 [B, 4, Hc, Wc] and chroma [B, Hc, 8, Wc] in the compute dtype
     (float32 or bfloat16), w27 [27, F] in the same dtype (see
-    :func:`block0_weights`), bias [F] float32, slope [1] float32.
-    Returns NHWC [B, Hc-1, Wc-1, F] in the compute dtype."""
+    :func:`block0_weights`), bias [F] float32, slope [1] float32, and
+    optionally ``inv_out`` [1] float32. Returns NHWC [B, Hc-1, Wc-1, F] in
+    the compute dtype, or int8 under ``inv_out``."""
     if lum4.device.type == "cpu":
-        return block0_plain(lum4, chroma, w27, bias, slope)
+        return block0_plain(lum4, chroma, w27, bias, slope, inv_out)
     B, _, Hc, Wc = lum4.shape
     f = w27.shape[1]
     dt = lum4.dtype
@@ -128,7 +157,14 @@ def fused_block0(lum4, chroma, w27, bias, slope):
     check_cuda("slope", slope, torch.float32, (1,))
     if f % 16:
         raise ValueError(f"block0 kernel needs F % 16 == 0, got F={f}")
-    out = torch.empty((B, Hc - 1, Wc - 1, f), dtype=dt, device=lum4.device)
-    KERNEL.launch(dt, ptr(lum4), ptr(chroma), ptr(w27), ptr(bias),
-                  ptr(slope), ptr(out), B, Hc, Wc, f)
+    shape = (B, Hc - 1, Wc - 1, f)
+    if inv_out is None:
+        out = torch.empty(shape, dtype=dt, device=lum4.device)
+        KERNEL.launch(dt, ptr(lum4), ptr(chroma), ptr(w27), ptr(bias),
+                      ptr(slope), ptr(out), B, Hc, Wc, f)
+        return out
+    check_cuda("inv_out", inv_out, torch.float32, (1,))
+    out = torch.empty(shape, dtype=torch.int8, device=lum4.device)
+    S8_KERNEL.launch(dt, ptr(lum4), ptr(chroma), ptr(w27), ptr(bias),
+                     ptr(slope), ptr(inv_out), ptr(out), B, Hc, Wc, f)
     return out

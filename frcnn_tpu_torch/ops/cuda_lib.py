@@ -109,16 +109,18 @@ class CudaKernel:
         REGISTRY[name] = self
         self.name = name
         self.entry = entry
-        self.symbols = symbols          # dtype -> exported symbol
+        self.symbols = symbols          # mode key -> exported symbol
         self.argtypes = argtypes + [ctypes.c_void_p]   # ... stream
         self.source = source
         self.replaces = replaces
         self.launches = 0
 
-    def launch(self, dtype: torch.dtype, *args) -> None:
-        if dtype not in self.symbols:
-            raise TypeError(f"{self.name}: no kernel for {dtype}")
-        fn = getattr(library(), self.symbols[dtype])
+    def launch(self, key, *args) -> None:
+        """Launch the symbol of mode ``key`` (the dtype, or a tuple of
+        dtypes where a kernel has more than one mode per dtype)."""
+        if key not in self.symbols:
+            raise TypeError(f"{self.name}: no kernel for {key}")
+        fn = getattr(library(), self.symbols[key])
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

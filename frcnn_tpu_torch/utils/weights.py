@@ -13,6 +13,11 @@ Trees of parameter shape (gradients, optimizer moments) map through
 ``"pnet.<name>"`` / ``"cnet.<name>"``; :func:`flax_order` gives those names
 in flax's leaf order (sorted keys at every level), the order of the
 optimizer state in a checkpoint.
+
+The int8 weights need no bridge: ``models/quant.py::quantize_pnet`` gives
+the JAX package's int8 weights and scales bit for bit from the same
+float32 weights. Calibrated activation scales do:
+:func:`act_scales_from_jax`.
 """
 
 from __future__ import annotations
@@ -164,3 +169,11 @@ def port_layout(cfg: Config, key: str, a) -> torch.Tensor:
 
 def _layout_of(cfg: Config) -> Dict[str, str]:
     return {e.key: e.layout for e in _entries(cfg) if not e.stat}
+
+
+def act_scales_from_jax(act_scales) -> Dict[str, torch.Tensor]:
+    """A JAX ``act_scales`` dict ({conv name: float32 scalar}, numpy or
+    JAX) -> the port's scale dict of float32 0-dim CPU tensors, bit for
+    bit (``models/quant.py::QuantizedPNet.set_act_scales`` moves them)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32).reshape(()))
+            for k, v in act_scales.items()}

@@ -52,6 +52,7 @@ def test_port_imports_with_the_jax_side_blocked():
             "import frcnn_tpu_torch.detect.detector, chip_smoke, "
             "frcnn_tpu_torch.utils.serialization, "
             "frcnn_tpu_torch.utils.weights, "
+            "frcnn_tpu_torch.models.quant, frcnn_tpu_torch.ops.int8_conv, "
             "frcnn_tpu_torch.train.trainer; print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
