@@ -10,14 +10,17 @@ Phases, each printing one flushed line with its seconds:
            shapes (equal, or within the stated tolerance), with CUDA-event
            times of kernel, plain version and, where one PyTorch call
            computes the same function, that call; the 2-conv block0 kernel
-           in both vgg_large buckets (timed at 480x1000)
+           in both vgg_large buckets (timed at 480x1000) and on two ragged
+           shapes whose tile count is no multiple of the SM count (the
+           persistent grid's partial last round)
   kernels-int8  the int8 modes of the two block0 kernels against their
            plain versions at the int8 path's shapes, float32 and bf16
            planes with a random pad ring: block0's int8 output, the 2-conv
            block0's int8 conv1 (float and int8 output) and its float conv1
            with an int8 output; int8 outputs at most one step apart in
-           under 1% of the values (the flip rate is printed); times beside
-           the float modes' on the same planes, and bounds
+           under 1% of the values (the flip rate is printed), also on the
+           ragged shapes; times beside the float modes' on the same planes,
+           and bounds
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
@@ -52,13 +55,19 @@ Phases, each printing one flushed line with its seconds:
            convolutions of the float path at the same shapes
   train-kernels  the two training kernels against their plain versions at
            the train step's shapes (ROI-pool backward within its stated
-           tolerance; first-max pool backward bitwise, also against the
-           library backward), with CUDA-event times and bounds
+           tolerance, two launches bitwise equal, also on small edge cases:
+           shared rows and bins, ties, map edges, an all-invalid image,
+           one-cell-wide rois, bins of more than 8 rows; first-max pool
+           backward bitwise, also against the library backward), with
+           CUDA-event times and bounds
   train    the Trainer (vgg_small, duplo, 450x800, batch 8): one float32
            step through the kernels against one through the plain versions
            (losses and gradients); then bf16 steps with the library pool
            backward and with the kernel, with the launch counts of every
-           kernel read around the kernel run
+           kernel read around the kernel run; then the ROI-pool backward on
+           the inputs of one more bf16 step (kept by a hook on its wrapper):
+           against its plain version, two launches bitwise equal, its time
+           and bound
   train-profile  device time of a bf16 train step by kernel group and the
            busy share, as the profile phase does for detect
 
@@ -94,6 +103,10 @@ B = 8
 IMAGE_HW = (450, 800)
 
 LARGE_HW = ((480, 1000), (1000, 480))   # the imagenet buckets
+# (batch, H, W) whose 4 x 32 pooled tiles are ragged at the image edges and
+# whose tile count (27, 300) is no multiple of the card's 132 SMs: the
+# persistent 2-conv grid's last round is partial
+RAGGED_2CONV = ((1, 66, 130), (2, 200, 330))
 
 KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
                   "frcnn_tpu_torch.ops.roi_pool_kernel",
@@ -377,9 +390,17 @@ def check_block0_2conv(gen):
     b0 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     s0, s1 = 0.25, 0.1
+    ragged = [pack_padded(torch.randn(n, h + 2, w + 2, 3, generator=gen)
+                          .cuda()) for n, h, w in RAGGED_2CONV]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
+        for (n, h, w), planes in zip(RAGGED_2CONV, ragged):
+            l, c = (x.to(dt) for x in planes)
+            _, err, tol, n_mis = _check_2conv_values(K, l, c, p)
+            log("kernels", f"fused_block0_2conv {str(dt)[6:]} B={n} {h}x{w} "
+                f"(ragged tiles, random pad ring): max abs err {err:.3g} "
+                f"({tol}; {n_mis} values differ)", t)
         # the portrait bucket's shape: values only (partial column tiles)
         H, W = LARGE_HW[1]
         l, c = (x.to(dt) for x in pack_padded(P[LARGE_HW[1]]))
@@ -536,13 +557,16 @@ def check_block0_2conv_int8(gen, float_res):
     b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     w1q, s_w = quantize_weight(w1)
     s0, s1 = 0.25, 0.1
+    cases = [(n, (h, w), torch.randn(n, h + 2, w + 2, 3, generator=gen)
+              .cuda()) for n, h, w in RAGGED_2CONV]
+    cases += [(B, hw, P[hw]) for hw in (LARGE_HW[1], LARGE_HW[0])]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
-        for hw in (LARGE_HW[1], LARGE_HW[0]):
+        for n, hw, padded in cases:
             t = time.perf_counter()
             H, W = hw
-            l, c = (x.to(dt) for x in pack_padded(P[hw]))
+            l, c = (x.to(dt) for x in pack_padded(padded))
             y0 = F.conv2d(unpack_s2d(l, c).float(), p.w0.float().reshape(
                 3, 3, 3, Fo).permute(3, 2, 0, 1), p.b0)
             s_y = _absmax_scale(torch.where(y0 >= 0, y0, s0 * y0))
@@ -550,7 +574,7 @@ def check_block0_2conv_int8(gen, float_res):
             wq9, ws = K.block0_2conv_weights_q(w1q, s_w, s_y)
             qa = (p.w0, p.b0, wq9, p.b1, p.slopes)
             inv_y = _inv(s_y)
-            what = f"block0_2conv_int8 {str(dt)[6:]} {H}x{W}"
+            what = f"block0_2conv_int8 {str(dt)[6:]} B={n} {H}x{W}"
             fl, ferr, fshare = _int8_conv1_values(K, l, c, qa, ws, inv_y,
                                                   s_y, w1, what)
             inv_o = _inv(_absmax_scale(fl))
@@ -570,7 +594,7 @@ def check_block0_2conv_int8(gen, float_res):
                    f"{100 * share:.5f}% of {got.numel()} values; float conv1 "
                    f"with int8 out {fstep} step apart in "
                    f"{100 * fo_share:.5f}%")
-            if hw != LARGE_HW[0]:
+            if n != B or hw != LARGE_HW[0]:
                 log("kernels-int8", msg, t)
                 continue
             run = lambda: K.fused_block0_2conv(l, c, *qa, w1_scale=ws,
@@ -825,7 +849,7 @@ PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
     ("block0_2conv_kernel", "block0_2conv kernel"),
     ("block0_kernel<__nv_bfloat16, signed char", "block0 s8out kernel"),
     ("block0_kernel", "block0 kernel"), ("nms_keep_kernel", "nms kernel"),
-    ("roi_pool_bwd_kernel", "roi_pool_bwd kernel"),
+    ("roi_pool_bwd", "roi_pool_bwd kernel"),   # both passes
     ("pool_bwd_kernel", "pool_bwd kernel"),
     ("roi_pool_kernel", "roi_pool kernel"), ("max_pool", "max pool"),
     ("conv", "convolution"), ("fprop", "convolution"),
@@ -884,6 +908,35 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
         f"share {100 * busy / wall_us:.1f}%), {prof_wall_us / 1e3:.3f} "
         f"ms/{unit} under it; {n_launch / n_calls:.0f} kernel launches per "
         f"{unit}", t)
+
+
+def kernel_device_ms(fn, fragments, n_calls: int = 10):
+    """Mean device ms per launch, and the launches seen, of the kernels
+    whose names hold each fragment, from torch.profiler over ``n_calls``
+    calls of ``fn()``: a mean per launch, so a launch the trace misses
+    does not count as zero time. None where a fragment was never seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(fragments, 0.0)
+    seen = dict.fromkeys(fragments, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for f in fragments:
+            if f in e.name:
+                us[f] += e.time_range.elapsed_us()
+                seen[f] += 1
+    if not all(seen.values()):
+        return None
+    return {f: (us[f] / seen[f] / 1e3, seen[f]) for f in fragments}
 
 
 def phase_profile(det, planes, hw_dev):
@@ -1291,10 +1344,102 @@ def _ulps(a, b):
     return int((ai - bi).abs().max())
 
 
+def _roi_bwd_check(K, plain, fm, rects, valid, g, k, what):
+    """The ROI-pool backward kernel against its plain version on one input:
+    float32 within atol 1e-6 (the same sums in the same order: rois, then
+    bins), bf16 within one ulp (both round those float32 sums once); and
+    two launches bitwise equal (no atomics). Returns (max abs err, the
+    tolerance's text)."""
+    got = K.adaptive_max_pool_valid_backward(fm, rects, valid, g, k, k)
+    again = K.adaptive_max_pool_valid_backward(fm, rects, valid, g, k, k)
+    torch.cuda.synchronize()
+    ref = plain.adaptive_max_pool_backward(fm, rects, valid, g, k, k)
+    if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+        raise AssertionError(f"roi_pool_bwd {what}: two launches differ")
+    err = float((got.float() - ref.float()).abs().max())
+    if fm.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+        return err, "atol 1e-6"
+    if _ulps(got, ref) > 1:
+        raise AssertionError(f"roi_pool_bwd {what}: {_ulps(got, ref)} ulps "
+                             f"apart")
+    return err, "one bf16 ulp"
+
+
+def _roi_bwd_bytes(fm, rects, valid, k):
+    """Least traffic of the ROI-pool backward: fm read, the valid rois' g
+    read, dfm written, rects and valid read."""
+    C = fm.shape[-1]
+    return (2 * fm.numel() + int(valid.sum()) * k * k * C) \
+        * fm.element_size() + rects.numel() * 4 + valid.numel()
+
+
+def _roi_edge_cases(gen):
+    """Small inputs (on the card) the two-pass design has to get right:
+    rois sharing rows and bins, ties across rows and columns of one bin,
+    rois on the map's edges, an image with every slot invalid, one-cell
+    wide rois, and bins of more than 8 rows (mask bits past the first
+    byte)."""
+    B_, C, D = 2, 16, 8
+    for name in ("shared_rows_bins", "ties_rows_cols", "map_edges",
+                 "image_all_invalid", "one_cell_wide", "tall_bins"):
+        H, W = (63, 13) if name == "tall_bins" else (11, 13)
+        fm = torch.randint(0, 4, (B_, H, W, C), generator=gen).float() / 4
+        xy = torch.stack([torch.randint(0, W - 4, (B_, D), generator=gen),
+                          torch.randint(0, H - 4, (B_, D), generator=gen)],
+                         -1)
+        rects = torch.cat([xy, xy + torch.randint(1, 5, (B_, D, 2),
+                                                  generator=gen)], -1)
+        valid = torch.ones(B_, D, dtype=torch.bool)
+        fixed = {"shared_rows_bins": [[1, 2, 10, 9], [1, 2, 10, 9],
+                                      [4, 2, 13, 9], [2, 3, 5, 5]],
+                 "ties_rows_cols": [[2, 2, 9, 8], [3, 2, 6, 5],
+                                    [0, 0, 13, 11]],
+                 "map_edges": [[0, 0, W, H], [W - 1, H - 1, W, H],
+                               [0, H - 3, W, H], [W - 4, 0, W, 5]],
+                 "one_cell_wide": [[4, 0, 5, H], [0, 3, W, 4], [6, 6, 7, 7],
+                                   [W - 1, 2, W, 9]],
+                 "tall_bins": [[0, 0, W, H], [2, 1, 9, 60]]}.get(name, [])
+        if fixed:
+            rects[:, :len(fixed)] = torch.tensor(fixed)
+        if name == "ties_rows_cols":
+            top = torch.rand(B_, 6, 6, C, generator=gen) < 0.5
+            fm[:, 2:8, 3:9] = torch.where(top, 1.0, fm[:, 2:8, 3:9])
+        if name == "image_all_invalid":
+            valid[1] = False
+            valid[0, ::3] = False
+        g = torch.randn(B_, D, 6, 6, C, generator=gen)
+        yield name, fm.cuda(), rects.float().cuda(), valid.cuda(), g.cuda()
+
+
+ROI_PASSES = ("roi_pool_bwd_ties_kernel", "roi_pool_bwd_kernel")
+
+
+def _roi_pass_split(run, n_calls: int = 10):
+    """The ROI-pool backward's two passes' device time, as text."""
+    split = kernel_device_ms(run, ROI_PASSES, n_calls)
+    if split is None:
+        return "pass split not measured (no device time in the profile)"
+    (ms1, n1), (ms2, n2) = (split[f] for f in ROI_PASSES)
+    return (f"device time per launch: pass 1 (tie masks) {ms1:.4f} ms + "
+            f"pass 2 (scatter) {ms2:.4f} ms = {ms1 + ms2:.4f} ms, "
+            f"torch.profiler, {n1} and {n2} of {n_calls} launches seen")
+
+
 def check_roi_pool_bwd(gen):
     from frcnn_tpu_torch.ops import roi_pool as plain
     from frcnn_tpu_torch.ops import roi_pool_kernel as K
 
+    t = time.perf_counter()
+    for name, fm32, rects, valid, g32 in _roi_edge_cases(gen):
+        for dt in (torch.float32, torch.bfloat16):
+            _roi_bwd_check(K, plain, fm32.to(dt), rects, valid, g32.to(dt),
+                           6, f"{name} {str(dt)[6:]}")
+    log("train-kernels", "roi_pool_bwd edge cases (shared rows and bins, "
+        "ties across rows and columns, map edges, an all-invalid image, "
+        "one-cell-wide rois, bins of more than 8 rows), float32 and bf16: "
+        "kernel == plain version at the stated tolerances, two launches "
+        "bitwise equal", t)
     t = time.perf_counter()
     H, W, C = FM_HWC
     D, k = TRAIN_ROIS, 6
@@ -1310,40 +1455,72 @@ def check_roi_pool_bwd(gen):
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         fm, g = fm32.to(dt), g32.to(dt)
-        got = K.adaptive_max_pool_valid_backward(fm, rects, valid, g, k, k)
-        torch.cuda.synchronize()
-        ref = plain.adaptive_max_pool_backward(fm, rects, valid, g, k, k)
-        err = float((got.float() - ref.float()).abs().max())
-        if dt == torch.float32:
-            # the kernel and the plain version sum in the same order
-            # (rois, then bins): equal up to float32 rounding, atol 1e-6
-            torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
-            tol = "atol 1e-6"
-        else:
-            # both round the same float32 sums to bf16 once: one ulp
-            if _ulps(got, ref) > 1:
-                raise AssertionError(f"roi_pool_bwd bf16: {_ulps(got, ref)} "
-                                     f"ulps apart")
-            tol = "one bf16 ulp"
-        ms = time_ms(lambda: K.adaptive_max_pool_valid_backward(
-            fm, rects, valid, g, k, k))
+        err, tol = _roi_bwd_check(K, plain, fm, rects, valid, g, k,
+                                  str(dt)[6:])
+        run = lambda: K.adaptive_max_pool_valid_backward(
+            fm, rects, valid, g, k, k)
+        ms = time_ms(run)
+        split = _roi_pass_split(run)
         pms = time_ms(lambda: plain.adaptive_max_pool_backward(
             fm, rects, valid, g, k, k), reps=3, warmup=1)
         n_valid = int(valid.sum())
-        # bytes: fm read, the valid rois' g read, dfm written; operations:
-        # two compares per window cell of the forward's recompute
+        # operations: two compares per window cell of the forward's
+        # recompute
         r = rects.to(torch.int64)[valid].cpu()
         cells = float(((r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])).sum())
-        n_bytes = (2 * fm.numel() + n_valid * k * k * C) * fm.element_size() \
-            + rects.numel() * 4 + valid.numel()
-        bms, by = bound_ms(n_bytes, 2.0 * cells * C, dt)
+        bms, by = bound_ms(_roi_bwd_bytes(fm, rects, valid, k),
+                           2.0 * cells * C, dt)
         res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
                    "bound_by": by, "max_abs_err": err, "library_ms": None}
         log("train-kernels", f"roi_pool_bwd {str(dt)[6:]} fm {tuple(fm.shape)}"
             f", {D} roi slots/image, {n_valid} valid: max abs err {err:.3g} "
-            f"({tol}); kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
-            f"{bms:.5f} ms ({by}); no single PyTorch call computes it", t)
+            f"({tol}; two launches bitwise equal); kernel {ms:.4f} ms ("
+            f"{split}), plain {pms:.3f} ms, bound {bms:.5f} ms ({by}); no "
+            f"single PyTorch call computes it", t)
     return res[torch.bfloat16]
+
+
+def check_roi_pool_bwd_step(trainer, batch):
+    """The ROI-pool backward on the inputs of one bf16 train step, kept by
+    a hook on the wrapper: against the plain version (bf16, and the same
+    inputs in float32), two launches bitwise equal, its time and bound."""
+    from frcnn_tpu_torch.ops import roi_pool as plain
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    t = time.perf_counter()
+    kept = []
+    real = K.adaptive_max_pool_valid_backward
+
+    def keep(fm, rects, valid, g, kh, kw):
+        if not kept:
+            kept.append((fm.clone(), rects.clone(), valid.clone(), g.clone(),
+                         kh))
+        return real(fm, rects, valid, g, kh, kw)
+
+    K.adaptive_max_pool_valid_backward = keep
+    try:
+        trainer.run_step(batch)
+    finally:
+        K.adaptive_max_pool_valid_backward = real
+    torch.cuda.synchronize()
+    fm, rects, valid, g, k = kept[0]
+    g = g.to(fm.dtype)
+    err, tol = _roi_bwd_check(K, plain, fm, rects, valid, g, k, "train step")
+    err32, tol32 = _roi_bwd_check(K, plain, fm.float(), rects, valid,
+                                  g.float(), k, "train step float32")
+    run = lambda: K.adaptive_max_pool_valid_backward(fm, rects, valid, g,
+                                                     k, k)
+    ms = time_ms(run)
+    split = _roi_pass_split(run)
+    r = rects.to(torch.int64)[valid].cpu()
+    ext = (r[:, 2:] - r[:, :2]).float().mean(0)
+    bms, by = bound_ms(_roi_bwd_bytes(fm, rects, valid, k), 0.0, fm.dtype)
+    log("train", f"roi_pool_bwd on the step's own inputs: fm "
+        f"{tuple(fm.shape)} {str(fm.dtype)[6:]}, {int(valid.sum())} valid of "
+        f"{valid.numel()} roi slots, mean roi {float(ext[0]):.1f} x "
+        f"{float(ext[1]):.1f} cells: max abs err {err:.3g} ({tol}), float32 "
+        f"{err32:.3g} ({tol32}), two launches bitwise equal; kernel "
+        f"{ms:.4f} ms ({split}), bound {bms:.5f} ms ({by})", t)
 
 
 def check_pool_bwd(gen):
@@ -1541,6 +1718,7 @@ def phase_train(kernels):
         if vjp == "kernel":
             for k in ("roi_pool_bwd", "pool_bwd"):
                 kernels[k]["launches"] = launches[k]
+            check_roi_pool_bwd_step(trainer, batch)
         else:
             del trainer
             torch.cuda.empty_cache()

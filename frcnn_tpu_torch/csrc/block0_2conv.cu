@@ -39,54 +39,120 @@
 //
 // Bound on the H100: operations. conv1 is 2*64*64*9 = 73.7 kFLOP per fine
 // pixel (283 GFLOP per batch of 8 at 480x1000; 0.29 ms at the 989 TFLOP/s
-// bf16 tensor-core rate), conv0 a twentieth of that; the planes and the
-// output move ~146 MB in bf16 (0.044 ms at 3.35 TB/s). In float32 the same
-// work takes ~4.4 ms at 67 TFLOP/s on CUDA cores. The int8 conv1 halves the
-// tensor-core time (1,979 TOP/s int8); conv0 on CUDA cores then sets the
-// bound with bf16 or float32 planes alike.
+// bf16 tensor-core rate), conv0 2*27*64 = 3.5 kFLOP per pixel; the planes
+// and the output move ~146 MB in bf16 (0.044 ms at 3.35 TB/s). In float32
+// the same work takes ~4.4 ms at 67 TFLOP/s on CUDA cores. The int8 conv1
+// halves the tensor-core time (1,979 TOP/s int8).
 //
-// Design (simple first; wgmma, TMA and a pipeline are later work). A block
-// owns a tile of PH x PW pooled outputs for all 64 channels:
-//  1. the block copies the P patch of its tile (two fine rows and columns
-//     of halo on each side) into shared memory as float32, and, in bf16,
-//     starts cp.async copies of all of w1 (72 KB) into shared memory;
-//  2. conv0 on CUDA cores in float32 for the (2PH+2) x (2PW+2) fine pixels
-//     of the tile and its one-pixel halo; every position outside the image
-//     (fine row -1 or H, column -1 or W) is stored as 0, which is conv1's
-//     zero padding: the planes' pad ring would otherwise give
+// Design. The output is cut into tiles of PH x PW pooled outputs for all 64
+// channels. One persistent block per SM walks the tiles (t, t + grid, ...),
+// so what every tile shares is loaded once per block, not once per tile:
+// w1 (all 9 taps by cp.async, swizzled as its rows are read), w0, b0, b1
+// and the dequant column. Per tile:
+//  1. its P patch (two fine rows and columns of halo on each side) arrives
+//     in a staging buffer in the planes' own layout: 12 x (PH + 3) plane
+//     rows (4 lum phases, 8 chroma rows) of PW + 3 plane columns, copied by
+//     16-byte cp.async. A row of an odd-width plane starts on any element,
+//     so each row keeps its offset within its first chunk; what lies
+//     outside the planes, or in a plane row outside them, is zero-filled.
+//     The copy for tile t + grid is issued as soon as tile t has read the
+//     buffer, so it lands while tile t runs conv0 and conv1. The block then
+//     rearranges the buffer into the fine patch P[3][PR][PC] in T;
+//     positions outside the padded image hold zeros or other plane values
+//     and feed only y0 positions that are masked;
+//  2. conv0 for the (2PH+2) x (2PW+2) fine pixels of the tile and its
+//     one-pixel halo. bf16 planes: on tensor cores, an implicit GEMM with
+//     M = 660 pixels (42 m16 tiles over 16 warps), N = 64 and K = 27 taps
+//     padded with zero weights to 32, on mma.sync.m16n8k16 with float32
+//     accumulators; A fragments are gathered from P with per-lane tap
+//     offsets, B comes from w0 stored transposed with a padded row (no bank
+//     conflicts). Products of bf16 values are exact, so only the float32 sum
+//     order differs from a CUDA-core loop. float32 planes: on CUDA cores in
+//     float32 (no TF32), a thread per (pixel, 16 channels). Every position
+//     outside the image (fine row -1 or H, column -1 or W) is stored as 0,
+//     conv1's zero padding: the planes' pad ring would otherwise give
 //     prelu0(b0 + ...) there. Letterboxed pixels inside the bucket are not
-//     masked, as in the Pallas kernel. y0 is rounded to T into shared
-//     memory;
-//  3. conv1 as an implicit GEMM (M = fine pixels, N = 64, K = 9 taps x 64):
-//     bf16 on tensor cores with mma.sync.m16n8k16 (float32 accumulators),
-//     A and B fragments loaded with ldmatrix from XOR-swizzled shared
-//     memory (16-byte chunk c of pixel/row p stored at chunk c ^ (p & 7),
-//     so eight consecutive rows hit eight different bank groups). Each warp
-//     owns two fine rows (one pooled row) x 16 fine columns x 64 channels.
-//     int8 takes the same tile and warps with mma.sync.m16n8k32 (int32
-//     accumulators): a row of 64 int8 is 4 chunks, stored at chunk
-//     c ^ ((p >> 1) & 3), so eight consecutive rows again cover the eight
-//     bank groups; ldmatrix moves the int8 fragments as b16 pairs, whose
-//     lane layout is the m16n8k32 one. 79 KB of y0 and w1 against 190 KB
-//     in bf16; one block per SM all the same (the accumulators' registers).
-//     float32 runs on CUDA cores (no TF32): a thread owns a pooled pixel
-//     and four output channels, w1 goes through shared memory a tap at a
-//     time;
+//     masked, as in the Pallas kernel. y0 is rounded to T (or quantized)
+//     into shared memory;
+//  3. conv1 as an implicit GEMM (M = fine pixels, N = 64, K = 9 taps x 64)
+//     on wgmma: warpgroup pr (4 warps) owns pooled row pr, i.e. fine rows
+//     2pr and 2pr + 1 as two 64-pixel M tiles x 64 channels. A comes from
+//     the warps' registers, loaded with ldmatrix (warp w holds rows
+//     16w..16w+15 of both tiles); B, w1, is read by the tensor cores from
+//     shared memory through a matrix descriptor. Both sit K-major in rows
+//     of 16-byte chunks XOR-swizzled by the row's address bits, which is
+//     the hardware's swizzle: bf16 rows of 128 bytes, chunk c of row p at
+//     c ^ (p & 7) (128-byte mode); int8 rows of 64 bytes, at
+//     c ^ ((p >> 1) & 3) (64-byte mode), so ldmatrix reads are free of bank
+//     conflicts too. bf16: m64n64k16, float32 accumulators; int8:
+//     m64n64k32, int32 accumulators (exact). A step is one tap and k slice;
+//     the next step's A fragments load while this step's products run
+//     (wgmma.wait_group 1). float32 runs on CUDA cores (no TF32): a thread
+//     owns a pooled pixel and four output channels, w1 goes through shared
+//     memory a tap at a time;
 //  4. epilogue: bias, PReLU, the 2x2 max (the vertical pair in registers,
 //     the horizontal one by a warp shuffle), one rounding (or the int8
 //     quantization), 16-byte NHWC stores (staged through shared memory on
-//     the tensor-core paths).
+//     the tensor-core paths); the accumulator layout of wgmma is that of
+//     mma.sync, one m16 tile per warp.
+// Shared memory of the bf16 instance, in bytes: w1 73,728; y0 84,480 (10 x
+// 66 pixels x 64 x 2); staging 8,064 (84 rows x 48 x 2) and its 84 row
+// offsets 336; P 4,896 (3 x 12 x 68 x 2); w0 5,120 (64 x 40 x 2); b0, b1
+// and the dequant column 768; the staged output 16,384: 193,776 of the
+// 232,448 a block may hold (int8 conv1 with int8 output: 106,480). The
+// accumulators' registers allow one block of 16 warps per SM either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
 
 constexpr int kF = 64;          // channels of both convolutions
 constexpr int kY0StrideF32 = 68;  // floats per pixel of the f32 y0 tile
+constexpr int kW0Stride = 40;   // bf16 per row of the transposed w0 (K 32)
+
+constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// Split of the kernel's time by phase, built only with
+// -DFRCNN_PHASE_STAMPS (frcnn_tpu_torch/tools/phase_split.py): thread 0 of
+// each block adds the clock64() cycles of each phase of the tile loop to
+// its row of g_stamps (8: the block's total), which
+// frcnn_block0_2conv_stamps reads and clears. STAMP_SYNC waits for the
+// whole block first. Without the flag the macros are empty.
+#ifdef FRCNN_PHASE_STAMPS
+constexpr int kStampPhases = 8, kStampBlocks = 1024;
+__device__ long long g_stamps[kStampBlocks][kStampPhases];
+#define STAMP_START                              \
+  long long stamp_acc[kStampPhases] = {};        \
+  long long stamp_t = clock64();                 \
+  const long long stamp_t0 = stamp_t
+#define STAMP(i)                                 \
+  do {                                           \
+    const long long n_ = clock64();              \
+    stamp_acc[i] += n_ - stamp_t;                \
+    stamp_t = n_;                                \
+  } while (0)
+#define STAMP_SYNC(i) \
+  do {                \
+    __syncthreads();  \
+    STAMP(i);         \
+  } while (0)
+#define STAMP_END                                                   \
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks) {              \
+    stamp_acc[kStampPhases - 1] = clock64() - stamp_t0;             \
+    for (int i = 0; i < kStampPhases; ++i)                          \
+      g_stamps[blockIdx.x][i] = stamp_acc[i];                       \
+  }
+#else
+#define STAMP_START
+#define STAMP(i)
+#define STAMP_SYNC(i)
+#define STAMP_END
+#endif
 
 // One mode of the kernel: planes and w0 in T; conv1 in int8 (kQ) or T;
 // output in O (T, or int8).
@@ -95,7 +161,9 @@ struct Mode {
   // y0 and w1 in shared memory: int8, bf16, or float32 (CUDA-core conv1)
   using Y = typename std::conditional<
       kQ, int8_t, T>::type;
-  static constexpr bool kTC = kQ || std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool kTC = kQ || kBF16;   // conv1 on tensor cores
+  static constexpr bool kTC0 = kBF16;        // conv0 on tensor cores
   // tensor cores: 4 pooled rows x 32 pooled columns (8 x 64 fine pixels),
   // 16 warps; float32 CUDA cores: 2 x 16, 8 warps
   static constexpr int PH = kTC ? 4 : 2, PW = kTC ? 32 : 16;
@@ -109,42 +177,60 @@ struct Smem {
   using Y = typename M::Y;
   static constexpr int RT = 2 * M::PH + 2, CT = 2 * M::PW + 2;  // y0 tile
   static constexpr int PR = RT + 2, PC = CT + 2;                // P patch
+  // staging: NR plane rows (4 lum phases, then 8 chroma rows, per plane
+  // row I) of NCH 16-byte chunks, E elements each, covering NJ columns
+  // from any offset within the first chunk
+  static constexpr int NI = M::PH + 3, NJ = M::PW + 3, NR = 12 * NI;
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int NCH = (NJ + 2 * (E - 1)) / E, SW = NCH * E;
   static constexpr int w1_bytes = M::kTC ? 9 * kF * kF * (int)sizeof(Y)
                                          : kF * kY0StrideF32 * 4;
   static constexpr int y0_bytes = M::kTC ? RT * CT * kF * (int)sizeof(Y)
                                          : RT * CT * kY0StrideF32 * 4;
-  static constexpr int p_bytes = 3 * PR * PC * 4;
-  static constexpr int w0_bytes = 27 * kF * 4;
+  static constexpr int stage_bytes = align16(NR * SW * (int)sizeof(T));
+  static constexpr int shift_bytes = align16(NR * 4);
+  static constexpr int p_bytes = align16(3 * PR * PC * (int)sizeof(T));
+  static constexpr int w0_bytes = M::kTC0 ? kF * kW0Stride * 2 : 27 * kF * 4;
   static constexpr int out_bytes =
       M::kTC ? M::PH * M::PW * kF * (int)sizeof(O) : 0;
   static constexpr int w1_off = 0;
   static constexpr int y0_off = w1_off + w1_bytes;
-  static constexpr int p_off = y0_off + y0_bytes;
+  static constexpr int stage_off = y0_off + y0_bytes;
+  static constexpr int shift_off = stage_off + stage_bytes;
+  static constexpr int p_off = shift_off + shift_bytes;
   static constexpr int w0_off = p_off + p_bytes;
   static constexpr int b0_off = w0_off + w0_bytes;
   static constexpr int b1_off = b0_off + kF * 4;
   static constexpr int ws_off = b1_off + kF * 4;
   static constexpr int out_off = ws_off + kF * 4;
   static constexpr int total = out_off + out_bytes;
-  static_assert(p_bytes % 16 == 0 && y0_bytes % 16 == 0 &&
-                    w1_bytes % 16 == 0,
+  static_assert(y0_bytes % 16 == 0 && w1_bytes % 16 == 0 &&
+                    w0_bytes % 16 == 0,
                 "alignment");
 };
 
+// the plans the source note states
+static_assert(Smem<__nv_bfloat16, false, __nv_bfloat16>::total == 193776,
+              "bf16 plan");
+static_assert(Smem<__nv_bfloat16, true, int8_t>::total == 106480,
+              "int8 plan");
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&two);
 }
 
-// clip(round(v * inv), -127, 127) as the int8's byte, round half to even
+// clip(round(v * inv), -127, 127) as the int8's byte, round half to even:
+// the lower clip, then one conversion that rounds to nearest even and
+// saturates at 127
 __device__ __forceinline__ uint32_t quant8(float v, float inv) {
-  const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.0f), 127.0f);
-  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
+  int q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;"
+      : "=r"(q)
+      : "f"(fmaxf(__fmul_rn(v, inv), -127.0f)));
+  return static_cast<uint32_t>(q) & 0xffu;
 }
 
 // two adjacent output channels into the staged tile
@@ -184,8 +270,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
+// 16 bytes, of which the first src_bytes (0 to 16) are read, the rest
+// zeroed
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -205,16 +304,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D = A (16x32, row) * B (32x8, col) + D; int8 inputs, int32 accumulators
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float prelu(float y, float a) {
   return y >= 0.0f ? y : a * y;
 }
@@ -224,21 +313,7 @@ __device__ __forceinline__ int s8_chunk(int p, int c) {
   return c ^ ((p >> 1) & 3);
 }
 
-// 16 channels (group g) of one y0 pixel into the tile.
-__device__ __forceinline__ void store_y0(__nv_bfloat16* y0s, int pix, int g,
-                                         const float (&v)[16], float) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int chunk = (2 * g + h) ^ (pix & 7);
-    uint4 q;
-    q.x = pack_bf16x2(v[8 * h + 0], v[8 * h + 1]);
-    q.y = pack_bf16x2(v[8 * h + 2], v[8 * h + 3]);
-    q.z = pack_bf16x2(v[8 * h + 4], v[8 * h + 5]);
-    q.w = pack_bf16x2(v[8 * h + 6], v[8 * h + 7]);
-    *reinterpret_cast<uint4*>(y0s + pix * kF + chunk * 8) = q;
-  }
-}
-
+// 16 channels (group g) of one y0 pixel into the tile (CUDA-core conv0).
 __device__ __forceinline__ void store_y0(float* y0s, int pix, int g,
                                          const float (&v)[16], float) {
   float4* d = reinterpret_cast<float4*>(y0s + pix * kY0StrideF32 + g * 16);
@@ -284,120 +359,148 @@ __device__ __forceinline__ void pool_store(float (&v)[8][4], int pr, int cs,
   }
 }
 
-// conv1 + PReLU + pool on tensor cores (bf16); out_s stages the tile.
-template <typename O>
-__device__ __forceinline__ void conv1_pool_bf16(
-    const __nv_bfloat16* y0s, const __nv_bfloat16* w1s, const float* b1s,
-    float a1, float inv_out, O* out_s) {
-  constexpr int CT = 2 * 32 + 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pr = warp / 4;             // pooled row of the warp
-  const int cs = (warp % 4) * 16;      // its first fine column
-  // ldmatrix row addresses: A rows are pixels (lane & 15), k half lane >> 4;
-  // B rows are output channels, matrices (n 0-7 | 8-15) x (k lo | k hi)
-  const int am = lane & 15, ak = lane >> 4;
-  const int bn = ((lane >> 4) << 3) + (lane & 7), bk = (lane >> 3) & 1;
-  const uint32_t y0_base = smem_addr(y0s), w1_base = smem_addr(w1s);
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][n][e] = 0.0f;
-
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    int pix[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) pix[t] = (2 * pr + t + dy) * CT + cs + am + dx;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int chunk = (2 * kc + ak) ^ (pix[t] & 7);
-        ldmatrix_x4(a[t], y0_base + (pix[t] * kF + chunk * 8) * 2);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int n = np * 16 + bn;
-        const int chunk = (2 * kc + bk) ^ (n & 7);
-        uint32_t b[4];
-        ldmatrix_x4(b, w1_base + ((tap * kF + n) * kF + chunk * 8) * 2);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          mma_bf16(acc[t][2 * np], a[t], b[0], b[1]);
-          mma_bf16(acc[t][2 * np + 1], a[t], b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  // accumulator (t, n, e): fine row 2pr+t, fine column cs + g + 8*(e >> 1),
-  // channel 8n + 2*tig + (e & 1), with g = lane >> 2, tig = lane & 3
-  const int tig = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float bias = b1s[8 * n + 2 * tig + (e & 1)];
-      acc[0][n][e] = fmaxf(prelu(acc[0][n][e] + bias, a1),
-                           prelu(acc[1][n][e] + bias, a1));
-    }
-  pool_store(acc[0], pr, cs, inv_out, out_s);
+// wgmma (one warpgroup of 4 warps issues a 64-row product): A from the
+// warps' registers, B from shared memory through a matrix descriptor.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// conv1 + dequant + PReLU + pool on int8 tensor cores; out_s stages the
-// tile. Same warp layout and accumulator mapping as conv1_pool_bf16.
-template <typename O>
-__device__ __forceinline__ void conv1_pool_s8(
-    const int8_t* y0s, const int8_t* w1s, const float* wss, const float* b1s,
-    float a1, float inv_out, O* out_s) {
+// Descriptor of a K-major operand whose rows of `row_bytes` (128: swizzle
+// mode 1, 64: mode 2) hold their 16-byte chunks XOR-swizzled by the row's
+// address bits (the layouts of w1s), 8-row groups 8 * row_bytes apart.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  constexpr uint64_t kMode = kRowBytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) |
+         (kMode << 62);
+}
+
+// D (64 x 64, float32) += A (64 x 16 bf16, registers) * B (descriptor)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D (64 x 64, int32) += A (64 x 32 int8, registers) * B (descriptor)
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// conv1 + (dequant +) PReLU + pool on wgmma: warpgroup pr owns pooled row
+// pr, i.e. fine rows 2pr and 2pr + 1 as two 64-pixel M tiles; warp w of
+// the group loads the A rows 16w..16w+15 of both (fine columns cs = 16w)
+// with ldmatrix, the group's wgmma reads w1 from shared memory. Steps are
+// (tap, k slice); the next step's A fragments load while this step's
+// products run. The accumulator layout is mma.sync's, so the epilogue is
+// pool_store's.
+template <bool kQ, typename Y, typename O>
+__device__ __forceinline__ void conv1_pool_wgmma(const Y* y0s, const Y* w1s,
+                                                 const float* wss,
+                                                 const float* b1s, float a1,
+                                                 float inv_out, O* out_s) {
   constexpr int CT = 2 * 32 + 2;
+  constexpr int kSlices = kQ ? 2 : 4;          // k slices per tap
+  constexpr int kSteps = 9 * kSlices;
+  constexpr int kRowBytes = kF * (int)sizeof(Y);
+  using Acc = typename std::conditional<kQ, int, float>::type;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pr = warp / 4, cs = (warp % 4) * 16;
   const int am = lane & 15, ak = lane >> 4;
-  const int bn = ((lane >> 4) << 3) + (lane & 7), bk = (lane >> 3) & 1;
   const uint32_t y0_base = smem_addr(y0s), w1_base = smem_addr(w1s);
 
-  int acc[2][8][4];
+  Acc acc[2][32];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][n][e] = 0;
+    for (int k = 0; k < 32; ++k) acc[t][k] = 0;
 
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
+  auto load_a = [&](uint32_t (&dst)[2][4], int step) {
+    const int tap = step / kSlices, kc = step % kSlices;
     const int dy = tap / 3, dx = tap % 3;
-    int pix[2];
 #pragma unroll
-    for (int t = 0; t < 2; ++t) pix[t] = (2 * pr + t + dy) * CT + cs + am + dx;
-#pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {   // 32 of the tap's 64 inputs a step
-      uint32_t a[2][4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        ldmatrix_x4(a[t], y0_base + pix[t] * kF +
-                              s8_chunk(pix[t], 2 * kc + ak) * 16);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int row = tap * kF + np * 16 + bn;
-        uint32_t b[4];
-        ldmatrix_x4(b, w1_base + row * kF + s8_chunk(row, 2 * kc + bk) * 16);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          mma_s8(acc[t][2 * np], a[t], b[0], b[1]);
-          mma_s8(acc[t][2 * np + 1], a[t], b[2], b[3]);
-        }
-      }
+    for (int t = 0; t < 2; ++t) {
+      const int pix = (2 * pr + t + dy) * CT + cs + am + dx;
+      const uint32_t off =
+          kQ ? pix * kF + s8_chunk(pix, 2 * kc + ak) * 16
+             : (pix * kF + ((2 * kc + ak) ^ (pix & 7)) * 8) * 2;
+      ldmatrix_x4(dst[t], y0_base + off);
     }
+  };
+  auto mma_step = [&](uint32_t (&cur)[2][4], uint32_t (&nxt)[2][4],
+                      int step) {
+    const int tap = step / kSlices, kc = step % kSlices;
+    const uint64_t desc = kmajor_desc<kRowBytes>(
+        w1_base + tap * kF * kRowBytes + kc * 32);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if constexpr (kQ)
+        wgmma_s8(acc[t], cur[t], desc);
+      else
+        wgmma_bf16(acc[t], cur[t], desc);
+    }
+    wgmma_commit();
+    if (step + 1 < kSteps) {
+      wgmma_wait<1>();   // the step that read nxt is done
+      load_a(nxt, step + 1);
+    }
+  };
+  uint32_t a0[2][4], a1f[2][4];
+  load_a(a0, 0);
+#pragma unroll 1
+  for (int step = 0; step < kSteps; step += 2) {
+    mma_step(a0, a1f, step);
+    mma_step(a1f, a0, step + 1);
   }
+  wgmma_wait<0>();
 
+  // accumulator (t, 4n + e): fine row 2pr+t, fine column cs + g + 8*(e >> 1),
+  // channel 8n + 2*tig + (e & 1), with g = lane >> 2, tig = lane & 3
   const int tig = lane & 3;
   float v[8][4];
 #pragma unroll
@@ -405,10 +508,18 @@ __device__ __forceinline__ void conv1_pool_s8(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int o = 8 * n + 2 * tig + (e & 1);
-      const float s = wss[o], bias = b1s[o];
-      v[n][e] = fmaxf(
-          prelu(__fmaf_rn(static_cast<float>(acc[0][n][e]), s, bias), a1),
-          prelu(__fmaf_rn(static_cast<float>(acc[1][n][e]), s, bias), a1));
+      const float bias = b1s[o];
+      if constexpr (kQ) {
+        const float sc = wss[o];
+        v[n][e] = fmaxf(
+            prelu(__fmaf_rn(static_cast<float>(acc[0][4 * n + e]), sc, bias),
+                  a1),
+            prelu(__fmaf_rn(static_cast<float>(acc[1][4 * n + e]), sc, bias),
+                  a1));
+      } else {
+        v[n][e] = fmaxf(prelu(acc[0][4 * n + e] + bias, a1),
+                        prelu(acc[1][4 * n + e] + bias, a1));
+      }
     }
   pool_store(v, pr, cs, inv_out, out_s);
 }
@@ -485,79 +596,160 @@ __device__ __forceinline__ void conv1_pool_f32(
   }
 }
 
+
+// Two adjacent y0 channels (8n + 2 tig, + 1) of pixel p into the tile:
+// bf16 in the 16-byte chunk n ^ (p & 7), or quantized to int8 at inv_y.
+__device__ __forceinline__ void store_y0_pair(__nv_bfloat16* y0s, int p,
+                                              int n, int tig, float v0,
+                                              float v1, float) {
+  *reinterpret_cast<uint32_t*>(y0s + p * kF + ((n ^ (p & 7)) << 3) +
+                               2 * tig) = pack_bf16x2(v0, v1);
+}
+
+__device__ __forceinline__ void store_y0_pair(int8_t* y0s, int p, int n,
+                                              int tig, float v0, float v1,
+                                              float inv_y) {
+  *reinterpret_cast<uint16_t*>(y0s + p * kF + s8_chunk(p, n >> 1) * 16 +
+                               8 * (n & 1) + 2 * tig) =
+      static_cast<uint16_t>(quant8(v0, inv_y) | (quant8(v1, inv_y) << 8));
+}
+
+// Issue the cp.async copies of the staging buffer of the tile whose first
+// pooled output is (pi0, pj0) of image b, and note each row's offset.
 template <typename T, bool kQ, typename O>
-__global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
-    block0_2conv_kernel(const T* __restrict__ lum4,
-                        const T* __restrict__ chroma,
-                        const T* __restrict__ w0, const float* __restrict__ b0,
-                        const void* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        const float* __restrict__ slopes,
-                        const float* __restrict__ ws,
-                        const float* __restrict__ inv_y,
-                        const float* __restrict__ inv_out,
-                        O* __restrict__ out, int Hc, int Wc) {
-  using M = Mode<T, kQ, O>;
+__device__ __forceinline__ void stage_tile(const T* lum4, const T* chroma,
+                                           T* stage, int* shift, int b,
+                                           int pi0, int pj0, int batch,
+                                           int Hc, int Wc) {
   using SM = Smem<T, kQ, O>;
-  using Y = typename M::Y;
-  constexpr int NT = M::kThreads, RT = SM::RT, CT = SM::CT, PR = SM::PR,
-                PC = SM::PC;
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  Y* w1s = reinterpret_cast<Y*>(smem + SM::w1_off);
-  Y* y0s = reinterpret_cast<Y*>(smem + SM::y0_off);
-  float* ps = reinterpret_cast<float*>(smem + SM::p_off);
-  float* w0s = reinterpret_cast<float*>(smem + SM::w0_off);
-  float* b0s = reinterpret_cast<float*>(smem + SM::b0_off);
-  float* b1s = reinterpret_cast<float*>(smem + SM::b1_off);
-  float* wss = reinterpret_cast<float*>(smem + SM::ws_off);
-
-  const int Ho = Hc - 1, Wo = Wc - 1, H = 2 * Ho, W = 2 * Wo;
-  const int pj0 = blockIdx.x * M::PW, pi0 = blockIdx.y * M::PH;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-
-  if constexpr (M::kTC) {
-    // all of w1 into shared memory, swizzled as its tile rows are read;
-    // lands while conv0 runs
-    constexpr int kChunks = kF * (int)sizeof(Y) / 16;   // per (tap, o) row
-    const unsigned char* src = static_cast<const unsigned char*>(w1);
-    for (int k = tid; k < 9 * kF * kChunks; k += NT) {
-      const int row = k / kChunks, c = k % kChunks;
-      const int dst = kQ ? s8_chunk(row, c) : (c ^ (row & 7));
-      cp_async16(reinterpret_cast<unsigned char*>(w1s) +
-                     (row * kChunks + dst) * 16,
-                 src + (size_t)k * 16);
-    }
+  constexpr int NI = SM::NI, E = SM::E, NCH = SM::NCH;
+  // element offsets fit in 32 bits (the launcher checks)
+  const int n_lum = batch * 4 * Hc * Wc;   // elements; chroma: twice that
+  for (int k = threadIdx.x; k < SM::NR * NCH; k += blockDim.x) {
+    const int row = k / NCH, q = k % NCH;
+    const bool lum = row < 4 * NI;
+    const int cr = row - 4 * NI;   // chroma: plane row cr / 8, channel cr % 8
+    const int I = pi0 - 1 + (lum ? row % NI : cr / 8);
+    const int e0 = (lum ? (b * 4 + row / NI) * Hc + I
+                        : (b * Hc + I) * 8 + cr % 8) * Wc + pj0 - 1;
+    const int es = e0 & -E;   // the 16-byte chunk holding e0
+    if (q == 0) shift[row] = e0 - es;
+    const int e = es + q * E, n = lum ? n_lum : 2 * n_lum;
+    const int bytes = I >= 0 && I < Hc && e >= 0 && e < n
+                          ? (n - e < E ? n - e : E) * (int)sizeof(T)
+                          : 0;
+    cp_async16z(stage + row * SM::SW + q * E,
+                (lum ? lum4 : chroma) + (bytes ? e : 0), bytes);
   }
-  // P patch: rows 2*pi0-1 .. 2*pi0+2PH+2, columns 2*pj0-1 .. 2*pj0+2PW+2;
-  // positions outside the planes only feed masked y0 and are read as 0
-  for (int k = tid; k < 3 * PR * PC; k += NT) {
+}
+
+// The staging buffer into the fine patch P[3][PR][PC]: P row yl + 1 of the
+// patch is plane row yl >> 1 of phase yl & 1 (the patch starts on an odd
+// row and column of P), and likewise for columns.
+template <typename T, bool kQ, typename O>
+__device__ __forceinline__ void unstage(const T* stage, const int* shift,
+                                        T* ps) {
+  using SM = Smem<T, kQ, O>;
+  constexpr int PR = SM::PR, PC = SM::PC, NI = SM::NI;
+  for (int k = threadIdx.x; k < 3 * PR * PC; k += blockDim.x) {
     const int c = k / (PR * PC), rem = k % (PR * PC);
-    const int yp = 2 * pi0 - 1 + rem / PC, xp = 2 * pj0 - 1 + rem % PC;
-    float v = 0.0f;
-    if (yp >= 0 && yp < 2 * Hc && xp >= 0 && xp < 2 * Wc) {
-      const size_t I = yp >> 1, J = xp >> 1;
-      const int ph = 2 * (yp & 1) + (xp & 1);
-      v = c == 0 ? to_f32(lum4[(((size_t)b * 4 + ph) * Hc + I) * Wc + J])
-                 : to_f32(chroma[(((size_t)b * Hc + I) * 8 + 2 * ph + c - 1) *
-                                     Wc + J]);
-    }
-    ps[k] = v;
+    const int yl = rem / PC + 1, xl = rem % PC + 1;
+    const int ph = 2 * (yl & 1) + (xl & 1), il = yl >> 1;
+    const int row = c == 0 ? ph * NI + il : 4 * NI + il * 8 + 2 * ph + c - 1;
+    ps[k] = stage[row * SM::SW + (xl >> 1) + shift[row]];
   }
-  for (int k = tid; k < 27 * kF; k += NT) w0s[k] = to_f32(w0[k]);
-  for (int k = tid; k < kF; k += NT) {
-    b0s[k] = b0[k];
-    b1s[k] = b1[k];
-    if constexpr (kQ) wss[k] = ws[k];
-  }
-  __syncthreads();
+}
 
-  // conv0 over the tile and its halo: item = (pixel, group of 16 channels);
-  // positions outside the image store 0 (int8 0 in the int8 mode)
-  const float a0 = slopes[0];
-  const float qy = kQ ? inv_y[0] : 0.0f;
-  for (int item = tid; item < RT * CT * 4; item += NT) {
+// conv0 + bias + PReLU of the tile and its halo on tensor cores (bf16
+// planes): M = pixels in m16 tiles, N = 64 (8 n8 tiles), K = 27 taps
+// padded to 32 (two k16 steps; w0t holds zero weights at taps 27-31).
+template <typename Y>
+__device__ __forceinline__ void conv0_tc(const __nv_bfloat16* ps,
+                                         const __nv_bfloat16* w0t,
+                                         const float* b0s, float a0,
+                                         float qy, Y* y0s, int pi0, int pj0,
+                                         int H, int W) {
+  constexpr int RT = 2 * 4 + 2, CT = 2 * 32 + 2, PR = RT + 2, PC = CT + 2;
+  constexpr int kPix = RT * CT, kTiles = (kPix + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  constexpr int kWarps = 16;
+  const uint16_t* pu = reinterpret_cast<const uint16_t*>(ps);
+  // the lane's taps k = 16s + 2 tig + (j & 1) + 8 ((j >> 1) & 1), j = 4s..
+  // (the A fragment's columns), as offsets into P; a padded tap reads any
+  // finite value of P, which meets a zero weight
+  int koff[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = 16 * (j >> 2) + 2 * tig + (j & 1) + 8 * ((j >> 1) & 1);
+    const int tap = k / 3, c = k % 3;
+    koff[j] = k < 27 ? (c * PR + tap / 3) * PC + tap % 3 : 0;
+  }
+  // the lane's biases (channels 8n + 2 tig, + 1)
+  float bias[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    bias[n][0] = b0s[8 * n + 2 * tig];
+    bias[n][1] = b0s[8 * n + 2 * tig + 1];
+  }
+#pragma unroll
+  for (int it = 0; it < (kTiles + kWarps - 1) / kWarps; ++it) {
+    const int mt = warp + it * kWarps;
+    if (mt >= kTiles) break;
+    int q[2];   // rows g and g + 8 of the m tile: their pixels' P offsets
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + g + 8 * h;
+      q[h] = p < kPix ? (p / CT) * PC + p % CT : 0;
+    }
+    uint32_t a[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // register r: row g + 8 (r & 1), taps k, k + 1 of pair r >> 1
+        const int h = r & 1, j = 4 * s + 2 * (r >> 1);
+        a[s][r] = static_cast<uint32_t>(pu[q[h] + koff[j]]) |
+                  (static_cast<uint32_t>(pu[q[h] + koff[j + 1]]) << 16);
+      }
+    float acc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+      // B fragments: the lane's channel 8n + g, taps 2 tig (+ 8) of k16
+      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+          w0t + (8 * n + g) * kW0Stride + 2 * tig);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) mma_bf16(acc[n], a[s], wr[8 * s], wr[8 * s + 4]);
+    }
+    // accumulator (n, e): pixel row g + 8 (e >> 1), channel 8n + 2 tig +
+    // (e & 1); 0 outside the image
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + g + 8 * h;
+      if (p >= kPix) continue;
+      const int y = 2 * pi0 - 1 + p / CT, x = 2 * pj0 - 1 + p % CT;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float v0 = in ? prelu(acc[n][2 * h] + bias[n][0], a0) : 0.0f;
+        const float v1 = in ? prelu(acc[n][2 * h + 1] + bias[n][1], a0) : 0.0f;
+        store_y0_pair(y0s, p, n, tig, v0, v1, qy);
+      }
+    }
+  }
+}
+
+// conv0 + bias + PReLU on CUDA cores in float32 (float32 planes): item =
+// (pixel, group of 16 channels); positions outside the image store 0
+template <typename Y, int PH, int PW>
+__device__ __forceinline__ void conv0_f32(const float* ps, const float* w0s,
+                                          const float* b0s, float a0,
+                                          float qy, Y* y0s, int pi0, int pj0,
+                                          int H, int W) {
+  constexpr int RT = 2 * PH + 2, CT = 2 * PW + 2, PR = RT + 2, PC = CT + 2;
+  for (int item = threadIdx.x; item < RT * CT * 4; item += blockDim.x) {
     const int pix = item % (RT * CT), g = item / (RT * CT);
     const int r = pix / CT, col = pix % CT;
     const int y = 2 * pi0 - 1 + r, x = 2 * pj0 - 1 + col;
@@ -589,30 +781,136 @@ __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
     }
     store_y0(y0s, pix, g, acc, qy);
   }
-  if constexpr (M::kTC) cp_async_wait_all();
-  __syncthreads();
+}
 
-  const float a1 = slopes[1];
-  const float qo = inv_out != nullptr ? inv_out[0] : 0.0f;
+template <typename T, bool kQ, typename O>
+__global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
+    block0_2conv_kernel(const T* __restrict__ lum4,
+                        const T* __restrict__ chroma,
+                        const T* __restrict__ w0, const float* __restrict__ b0,
+                        const void* __restrict__ w1,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ slopes,
+                        const float* __restrict__ ws,
+                        const float* __restrict__ inv_y,
+                        const float* __restrict__ inv_out,
+                        O* __restrict__ out, int batch, int Hc, int Wc) {
+  using M = Mode<T, kQ, O>;
+  using SM = Smem<T, kQ, O>;
+  using Y = typename M::Y;
+  constexpr int NT = M::kThreads;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  Y* w1s = reinterpret_cast<Y*>(smem + SM::w1_off);
+  Y* y0s = reinterpret_cast<Y*>(smem + SM::y0_off);
+  T* stage = reinterpret_cast<T*>(smem + SM::stage_off);
+  int* shift = reinterpret_cast<int*>(smem + SM::shift_off);
+  T* ps = reinterpret_cast<T*>(smem + SM::p_off);
+  float* b0s = reinterpret_cast<float*>(smem + SM::b0_off);
+  float* b1s = reinterpret_cast<float*>(smem + SM::b1_off);
+  float* wss = reinterpret_cast<float*>(smem + SM::ws_off);
+
+  const int Ho = Hc - 1, Wo = Wc - 1, H = 2 * Ho, W = 2 * Wo;
+  const int tiles_x = (Wo + M::PW - 1) / M::PW;
+  const int tiles_img = tiles_x * ((Ho + M::PH - 1) / M::PH);
+  const int n_tiles = batch * tiles_img;
+  const int tid = threadIdx.x;
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  STAMP_START;
+
   if constexpr (M::kTC) {
-    O* out_s = reinterpret_cast<O*>(smem + SM::out_off);
-    if constexpr (kQ)
-      conv1_pool_s8(y0s, w1s, wss, b1s, a1, qo, out_s);
-    else
-      conv1_pool_bf16(y0s, w1s, b1s, a1, qo, out_s);
-    __syncthreads();
-    constexpr int kChunks = kF * (int)sizeof(O) / 16;   // per pooled pixel
-    for (int k = tid; k < M::PH * M::PW * kChunks; k += NT) {
-      const int pp = k / kChunks, c = k % kChunks;
-      const int i = pi0 + pp / M::PW, j = pj0 + pp % M::PW;
-      if (i < Ho && j < Wo)
-        reinterpret_cast<uint4*>(out + (((size_t)b * Ho + i) * Wo + j) * kF)[c] =
-            reinterpret_cast<const uint4*>(out_s + pp * kF)[c];
+    // all of w1, once per block, swizzled as its tile rows are read
+    constexpr int kChunks = kF * (int)sizeof(Y) / 16;   // per (tap, o) row
+    const unsigned char* src = static_cast<const unsigned char*>(w1);
+    for (int k = tid; k < 9 * kF * kChunks; k += NT) {
+      const int row = k / kChunks, c = k % kChunks;
+      const int dst = kQ ? s8_chunk(row, c) : (c ^ (row & 7));
+      cp_async16(reinterpret_cast<unsigned char*>(w1s) +
+                     (row * kChunks + dst) * 16,
+                 src + (size_t)k * 16);
+    }
+  }
+  stage_tile<T, kQ, O>(lum4, chroma, stage, shift, tile / tiles_img,
+                       (tile % tiles_img) / tiles_x * M::PH,
+                       tile % tiles_x * M::PW, batch, Hc, Wc);
+  cp_async_commit();
+  if constexpr (M::kTC0) {
+    // w0 transposed, [o][tap] with taps 27-31 zero: B fragments of conv0
+    __nv_bfloat16* w0t = reinterpret_cast<__nv_bfloat16*>(smem + SM::w0_off);
+    for (int k = tid; k < kF * 32; k += NT) {
+      const int o = k / 32, tap = k % 32;
+      w0t[o * kW0Stride + tap] =
+          tap < 27 ? w0[tap * kF + o] : __float2bfloat16(0.0f);
     }
   } else {
-    conv1_pool_f32(y0s, w1s, static_cast<const float*>(w1), b1s, a1, qo, out,
-                   b, pi0, pj0, Ho, Wo);
+    float* w0s = reinterpret_cast<float*>(smem + SM::w0_off);
+    for (int k = tid; k < 27 * kF; k += NT) w0s[k] = to_f32(w0[k]);
   }
+  for (int k = tid; k < kF; k += NT) {
+    b0s[k] = b0[k];
+    b1s[k] = b1[k];
+    if constexpr (kQ) wss[k] = ws[k];
+  }
+  const float a0 = slopes[0], a1 = slopes[1];
+  const float qy = kQ ? inv_y[0] : 0.0f;
+  const float qo = inv_out != nullptr ? inv_out[0] : 0.0f;
+
+  STAMP_SYNC(0);   // the prologue
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_img;
+    const int pi0 = (tile % tiles_img) / tiles_x * M::PH;
+    const int pj0 = tile % tiles_x * M::PW;
+    // this tile's patch (first: also w1 and the weights) has landed, and
+    // the previous tile's conv1 is done with y0
+    cp_async_wait_all();
+    // w1 is read by wgmma through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    STAMP(1);   // the patch wait
+    unstage<T, kQ, O>(stage, shift, ps);
+    __syncthreads();
+    STAMP(2);   // the unstaging
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {   // lands while this tile runs
+      stage_tile<T, kQ, O>(lum4, chroma, stage, shift, next / tiles_img,
+                           (next % tiles_img) / tiles_x * M::PH,
+                           next % tiles_x * M::PW, batch, Hc, Wc);
+      cp_async_commit();
+    }
+    STAMP(3);   // issuing the next patch's copies
+    if constexpr (M::kTC0)
+      conv0_tc(ps, reinterpret_cast<const __nv_bfloat16*>(smem + SM::w0_off),
+               b0s, a0, qy, y0s, pi0, pj0, H, W);
+    else
+      conv0_f32<Y, M::PH, M::PW>(
+          ps, reinterpret_cast<const float*>(smem + SM::w0_off), b0s, a0, qy,
+          y0s, pi0, pj0, H, W);
+    __syncthreads();
+    STAMP(4);   // conv0
+
+    if constexpr (M::kTC) {
+      O* out_s = reinterpret_cast<O*>(smem + SM::out_off);
+      conv1_pool_wgmma<kQ>(y0s, w1s, wss, b1s, a1, qo, out_s);
+      __syncthreads();
+      STAMP(5);   // conv1 and the pool
+      constexpr int kChunks = kF * (int)sizeof(O) / 16;   // per pooled pixel
+      for (int k = tid; k < M::PH * M::PW * kChunks; k += NT) {
+        const int pp = k / kChunks, c = k % kChunks;
+        const int i = pi0 + pp / M::PW, j = pj0 + pp % M::PW;
+        if (i < Ho && j < Wo)
+          reinterpret_cast<uint4*>(out + (((size_t)b * Ho + i) * Wo + j) *
+                                             kF)[c] =
+              reinterpret_cast<const uint4*>(out_s + pp * kF)[c];
+      }
+      STAMP_SYNC(6);   // the store
+    } else {
+      conv1_pool_f32(y0s, w1s, static_cast<const float*>(w1), b1s, a1, qo,
+                     out, b, pi0, pj0, Ho, Wo);
+      STAMP_SYNC(5);   // conv1, the pool and the store
+    }
+  }
+  STAMP_END;
 }
 
 template <typename T, bool kQ, typename O>
@@ -629,18 +927,45 @@ int launch(const void* lum4, const void* chroma, const void* w0,
     return (int)cudaErrorInvalidValue;
   if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
   const int smem = Smem<T, kQ, O>::total;
-  cudaError_t e = cudaFuncSetAttribute(
-      block0_2conv_kernel<T, kQ, O>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = block0_2conv_kernel<T, kQ, O>;
+  // persistent: as many blocks as the current card holds at once (its SMs
+  // times the blocks an SM holds), at most one per tile. The shared-memory
+  // attribute and the SM count belong to a device, so both are taken at
+  // the first launch on each device and kept per device.
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> resident_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Wo + M::PW - 1) / M::PW, (Ho + M::PH - 1) / M::PH, batch);
-  block0_2conv_kernel<T, kQ, O>
-      <<<grid, M::kThreads, smem, (cudaStream_t)stream>>>(
-          static_cast<const T*>(lum4), static_cast<const T*>(chroma),
-          static_cast<const T*>(w0), static_cast<const float*>(b0), w1,
-          static_cast<const float*>(b1), static_cast<const float*>(slopes),
-          static_cast<const float*>(ws), static_cast<const float*>(inv_y),
-          static_cast<const float*>(inv_out), static_cast<O*>(out), Hc, Wc);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int resident = resident_of[dev].load(std::memory_order_acquire);
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        M::kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+    resident_of[dev].store(resident, std::memory_order_release);
+  }
+  const long long tiles = (long long)batch * ((Ho + M::PH - 1) / M::PH) *
+                          ((Wo + M::PW - 1) / M::PW);
+  if (tiles > 0x7fffffffLL || (long long)batch * 8 * Hc * Wc > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, M::kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(lum4), static_cast<const T*>(chroma),
+      static_cast<const T*>(w0), static_cast<const float*>(b0), w1,
+      static_cast<const float*>(b1), static_cast<const float*>(slopes),
+      static_cast<const float*>(ws), static_cast<const float*>(inv_y),
+      static_cast<const float*>(inv_out), static_cast<O*>(out), batch, Hc,
+      Wc);
   return (int)cudaGetLastError();
 }
 
@@ -671,3 +996,16 @@ FRCNN_BLOCK0_2CONV(frcnn_block0_2conv_q_bf16, __nv_bfloat16, true,
                    __nv_bfloat16)
 FRCNN_BLOCK0_2CONV(frcnn_block0_2conv_q_f32_s8, float, true, int8_t)
 FRCNN_BLOCK0_2CONV(frcnn_block0_2conv_q_bf16_s8, __nv_bfloat16, true, int8_t)
+
+#ifdef FRCNN_PHASE_STAMPS
+// Copies the phase stamps of the last launch ([1024 blocks][8] cycles, 0
+// for a block that did not run) to host memory and clears them.
+extern "C" int frcnn_block0_2conv_stamps(long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+  void* dev = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&dev, g_stamps);
+  if (e == cudaSuccess) e = cudaMemset(dev, 0, sizeof(g_stamps));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+#endif

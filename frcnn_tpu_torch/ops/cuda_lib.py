@@ -31,6 +31,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# more nvcc flags, set before the first launch: ("-DFRCNN_PHASE_STAMPS",)
+# builds the 2-conv block0 kernel with its phase stamps
+# (frcnn_tpu_torch/tools/phase_split.py); a build of its own either way
+EXTRA_FLAGS: tuple = ()
+
 NVCC_TIMEOUT_S = 240    # a cold build of the kernels takes ~10 s
 
 _lib = None
@@ -53,7 +58,8 @@ def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library unless a library of
     the same sources and flags exists; returns its path."""
     srcs = sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *EXTRA_FLAGS)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
@@ -63,7 +69,7 @@ def build() -> Path:
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, srcs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=NVCC_TIMEOUT_S)

@@ -34,7 +34,8 @@ BWD_KERNEL = CudaKernel(
     entry="roi_pool_bwd_kernel",
     symbols={torch.float32: "frcnn_roi_pool_bwd_f32",
              torch.bfloat16: "frcnn_roi_pool_bwd_bf16"},
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
+    # fm, rects, valid, g, tie masks, dfm; B, D, H, W, C, kh, kw
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7,
     source="frcnn_tpu_torch/csrc/roi_pool_bwd.cu",
     replaces="frcnn_tpu/ops/pallas_roi_pool.py:194 (_bwd_kernel of "
              "_backward, pallas_call at :344)",
@@ -60,23 +61,49 @@ def adaptive_max_pool_valid(fm, rects, valid, kh: int, kw: int):
     return out
 
 
+def tie_mask_rows(H: int, kh: int) -> int:
+    """Most rows in a row bin of a prepared rect, ``min(H, ceil(H/kh) +
+    1)``: the bits the backward kernel's 32-bit row-tie masks need (one
+    per row). Raises above 32."""
+    rows = min(H, -(-H // kh) + 1)
+    if rows > 32:
+        raise ValueError(f"roi_pool_bwd kernel: row bins of up to {rows} "
+                         f"rows (H={H}, kh={kh}); the tie masks hold 32")
+    return rows
+
+
+def _aligned16(t):
+    """``t``, or a copy of it when its data is not 16-byte aligned (the
+    kernel moves up to 16 bytes of channels per access)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def adaptive_max_pool_valid_backward(fm, rects, valid, g, kh: int, kw: int):
     """dfm [B, H, W, C] in the dtype of ``fm`` for the cotangent ``g``
     [B, D, kh, kw, C] of :func:`adaptive_max_pool_valid` (cast to the dtype
-    of ``fm`` first); invalid rois contribute nothing."""
+    of ``fm`` first); invalid rois contribute nothing. The kernel needs C
+    to be a multiple of 16, kh and kw at most 8 and W under 32768."""
     if fm.device.type == "cpu":
         return plain.adaptive_max_pool_backward(fm, rects, valid, g, kh, kw)
     B, H, W, C = fm.shape
     D = rects.shape[1]
+    if C % 16 or max(kh, kw) > 8 or W >= 32768:
+        raise ValueError(f"roi_pool_bwd kernel: takes C a multiple of 16, "
+                         f"kh and kw <= 8 and W < 32768; got C={C}, kh={kh}, "
+                         f"kw={kw}, W={W}")
+    tie_mask_rows(H, kh)
     rects_i = rects.to(torch.int32).contiguous()
-    gq = g.to(fm.dtype).contiguous()
+    fm = _aligned16(fm)
+    gq = _aligned16(g.to(fm.dtype).contiguous())
     check_cuda("fm", fm, fm.dtype, (B, H, W, C))
     check_cuda("rects", rects_i, torch.int32, (B, D, 4))
     check_cuda("valid", valid, torch.bool, (B, D))
     check_cuda("g", gq, fm.dtype, (B, D, kh, kw, C))
+    ties = torch.empty((B, D, kh, kw, C), dtype=torch.int32,
+                       device=fm.device)
     dfm = torch.empty_like(fm)
     BWD_KERNEL.launch(fm.dtype, ptr(fm), ptr(rects_i), ptr(valid), ptr(gq),
-                      ptr(dfm), B, D, H, W, C, kh, kw)
+                      ptr(ties), ptr(dfm), B, D, H, W, C, kh, kw)
     return dfm
 
 

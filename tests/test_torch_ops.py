@@ -13,7 +13,10 @@ Tolerances:
 * ROI-pool backward (plain): against the Pallas ``_backward`` (interpret)
   and ``jax.vjp`` of ``adaptive_max_pool``, atol 1e-6 in float32 (sums in
   another order); in bf16 within one bf16 ulp of ``_backward``; ties,
-  overlapping bins and invalid rois included;
+  overlapping bins and invalid rois included, and the cases the CUDA
+  kernel's two passes must get right (shared rows and bins, ties across
+  rows and columns, map edges, an all-invalid image, one-cell-wide rois);
+  the kernel's division by a count rounds as float32 division, exactly;
 * first-max pool backward (plain): bitwise equal to ``jax.vjp`` of
   ``ceil_max_pool_2x2``, to ``_pool_bwd_pallas`` (interpret, even W) and
   to ``F.max_pool2d``'s own backward, float32 and bf16, with ties and odd
@@ -264,6 +267,104 @@ def test_roi_pool_backward_plain_matches_jax(seed, H, W):
     ref16 = torch.from_numpy(np.array(ref16)).bfloat16()
     ulps = (got16.view(torch.int16).int() - ref16.view(torch.int16).int())
     assert int(ulps.abs().max()) <= 1
+
+
+def _roi_edge_case(name, H=11, W=13, B=2, C=16, D=8):
+    """Cases the two-pass kernel design has to get right: rois sharing
+    rows and bins, ties across rows and columns of one bin, rois on the
+    map's edges, an image with every slot invalid, one-cell-wide rois."""
+    rng = np.random.default_rng(7)
+    fm = rng.integers(0, 4, (B, H, W, C)).astype(np.float32) / 4
+    rects = np.stack([rng.integers(0, W - 4, (B, D)),
+                      rng.integers(0, H - 4, (B, D))], -1)
+    rects = np.concatenate([rects, rects + rng.integers(1, 5, (B, D, 2))],
+                           -1)
+    valid = np.ones((B, D), bool)
+    if name == "shared_rows_bins":
+        rects[:, :4] = [[1, 2, 10, 9], [1, 2, 10, 9], [4, 2, 13, 9],
+                        [2, 3, 5, 5]]
+    elif name == "ties_rows_cols":
+        fm[:, 2:8, 3:9, :] = np.where(
+            rng.uniform(size=(B, 6, 6, C)) < 0.5, 1.0, fm[:, 2:8, 3:9, :])
+        rects[:, :3] = [[2, 2, 9, 8], [3, 2, 6, 5], [0, 0, 13, 11]]
+    elif name == "map_edges":
+        rects[:, :4] = [[0, 0, W, H], [W - 1, H - 1, W, H],
+                        [0, H - 3, W, H], [W - 4, 0, W, 5]]
+    elif name == "image_all_invalid":
+        valid[1] = False
+        valid[0, ::3] = False
+    elif name == "one_cell_wide":
+        rects[:, :4] = [[4, 0, 5, H], [0, 3, W, 4], [6, 6, 7, 7],
+                        [W - 1, 2, W, 9]]
+    g = rng.normal(size=(B, D, 6, 6, C)).astype(np.float32)
+    return fm, rects.astype(np.float32), valid, g
+
+
+@pytest.mark.parametrize("name", ["shared_rows_bins", "ties_rows_cols",
+                                  "map_edges", "image_all_invalid",
+                                  "one_cell_wide"])
+def test_roi_pool_backward_cases_match_jax(name):
+    fm, rects, valid, g = _roi_edge_case(name)
+    args = (jnp.asarray(rects), jnp.asarray(valid), jnp.asarray(g), 6, 6,
+            True)
+    got = troi.adaptive_max_pool_backward(_t(fm), _t(rects), _t(valid),
+                                          _t(g), 6, 6)
+    ref = np.asarray(j_roi_backward(jnp.asarray(fm), *args))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+    if name == "image_all_invalid":
+        assert not got[1].any()
+    got16 = troi.adaptive_max_pool_backward(
+        _t(fm).bfloat16(), _t(rects), _t(valid), _t(g), 6, 6)
+    ref16 = torch.from_numpy(np.array(j_roi_backward(
+        jnp.asarray(fm, jnp.bfloat16), *args).astype(jnp.float32)))
+    ulps = got16.view(torch.int16).int() - ref16.bfloat16().view(
+        torch.int16).int()
+    assert int(ulps.abs().max()) <= 1
+
+
+def _rn32(x):
+    """A rational rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    cands = (f, np.nextafter(f, np.float32(np.inf)),
+             np.nextafter(f, np.float32(-np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(c.view(np.uint32)) & 1))
+
+
+def test_roi_pool_backward_division_rounds_as_ieee():
+    """The ROI-pool backward kernel divides by a count n as Markstein's
+    correction of x * y, y = 1/n rounded (csrc/roi_pool_bwd.cu
+    ``div_count``): q = x * y, r = fma(-n, q, x), q + r * y, each rounded
+    once; it must round as the float32 division x / n does."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(3)
+    xs = np.concatenate([rng.standard_normal(120),
+                         rng.integers(-400, 400, 60) / 4,
+                         rng.standard_normal(60) * 1e-6]).astype(np.float32)
+    for n in (1, 2, 3, 5, 6, 7, 9, 11, 12, 13, 17, 31, 100):
+        y = _rn32(Fraction(1, n))
+        for x in xs:
+            q = x * y                                     # float32 product
+            r = Fraction(float(x)) - n * Fraction(float(q))
+            assert Fraction(float(np.float32(float(r)))) == r  # exact
+            got = _rn32(Fraction(float(q)) + r * Fraction(float(y)))
+            assert got == np.float32(x) / np.float32(n), (x, n)
+
+
+def test_roi_pool_backward_tie_mask_bytes():
+    """The kernel's row-tie masks are 4 bytes per channel, a bit per row
+    of a row bin: bins of vgg_small's 29-row map hold up to 6 rows,
+    vgg_large's 63-row one 12, a 3-row map 2; beyond 32 rows a clear
+    error."""
+    assert roi_pool_kernel.tie_mask_rows(29, 6) == 6
+    assert roi_pool_kernel.tie_mask_rows(63, 6) == 12
+    assert roi_pool_kernel.tie_mask_rows(3, 6) == 2
+    assert roi_pool_kernel.tie_mask_rows(186, 6) == 32
+    with pytest.raises(ValueError, match="tie masks"):
+        roi_pool_kernel.tie_mask_rows(200, 6)
 
 
 def test_roi_pool_grad_functions():
