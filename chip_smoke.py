@@ -9,22 +9,29 @@ Phases, each printing one flushed line with its seconds:
   kernels  each kernel against its plain PyTorch version at the serving
            shapes (equal, or within the stated tolerance), with CUDA-event
            times of kernel, plain version and, where one PyTorch call
-           computes the same function, that call; the 2-conv block0 kernel
-           in both vgg_large buckets (timed at 480x1000) and on two ragged
-           shapes whose tile count is no multiple of the SM count (the
-           persistent grid's partial last round)
+           computes the same function, that call; the ROI pool bitwise also
+           at C=512 on both vgg_large maps, at the train step's 224 slots
+           and on small edge cases, float32 and bf16; block0 also on two
+           ragged shapes (both slope signs) with the count of bf16 values
+           that differ; the 2-conv block0 kernel in both vgg_large buckets
+           (timed at 480x1000) and on the same ragged shapes, whose tile
+           count is no multiple of the SM count (the persistent grids'
+           partial last round)
   kernels-int8  the int8 modes of the two block0 kernels against their
            plain versions at the int8 path's shapes, float32 and bf16
            planes with a random pad ring: block0's int8 output, the 2-conv
            block0's int8 conv1 (float and int8 output) and its float conv1
            with an int8 output; int8 outputs at most one step apart in
            under 1% of the values (the flip rate is printed), also on the
-           ragged shapes; times beside the float modes' on the same planes,
-           and bounds
+           ragged shapes (both kernels); times beside the float modes' on
+           the same planes, and bounds
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
-           counts of every kernel read around them
+           counts of every kernel read around them; the device time per
+           detect of NMS (both launches), the ROI pool and block0
+           (torch.profiler); the ROI pool bitwise on a detect's own inputs
+           (a hook on its wrapper), with their valid count and mean size
   profile  device time of the bf16 serving batch by kernel group
            (torch.profiler), and the device's busy share: that device
            time over the wall time of the same batches run without the
@@ -48,7 +55,8 @@ Phases, each printing one flushed line with its seconds:
            ms/batch and img/s from packed device planes with the launch
            counts (1 of the family's int8 block0 kernel per call, 0 of the
            float block0 modes), and the share of the float path's
-           detections the int8 path matches (class, IoU >= 0.5)
+           detections the int8 path matches (class, IoU >= 0.5); the
+           int8 block0 kernel's device time per vgg_small detect
   profile-int8  device time of an int8 bf16 batch of each family by
            kernel group, and each int8 conv layer group (quantize, im2col,
            torch._int_mm, dequantize) timed beside the bf16 cuDNN
@@ -67,11 +75,13 @@ Phases, each printing one flushed line with its seconds:
            kernel read around the kernel run; then the ROI-pool backward on
            the inputs of one more bf16 step (kept by a hook on its wrapper):
            against its plain version, two launches bitwise equal, its time
-           and bound
+           and bound; the ROI-pool forward bitwise on one more step's own
+           inputs, and its device time per step
   train-profile  device time of a bf16 train step by kernel group and the
            busy share, as the profile phase does for detect
 
-then one JSON line of per-kernel numbers, the card's name and power limit,
+then one JSON line of per-kernel numbers (with ``device_ms``, the device
+time per path call where it was measured), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -103,10 +113,13 @@ B = 8
 IMAGE_HW = (450, 800)
 
 LARGE_HW = ((480, 1000), (1000, 480))   # the imagenet buckets
-# (batch, H, W) whose 4 x 32 pooled tiles are ragged at the image edges and
-# whose tile count (27, 300) is no multiple of the card's 132 SMs: the
-# persistent 2-conv grid's last round is partial
-RAGGED_2CONV = ((1, 66, 130), (2, 200, 330))
+# (batch, H, W) whose 4 x 32 pooled tiles (the tiles of both block0
+# kernels) are ragged at the image edges and whose tile count (27, 300) is
+# no multiple of the card's 132 SMs: the persistent grid's last round is
+# partial
+RAGGED = ((1, 66, 130), (2, 200, 330))
+# the vgg_large feature maps (the pnet's four ceil pools of each bucket)
+LARGE_FM = ((30, 63, 512), (63, 30, 512))
 
 KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
                   "frcnn_tpu_torch.ops.roi_pool_kernel",
@@ -257,44 +270,116 @@ def check_nms(gen):
     return out
 
 
+def _roi_inputs(gen, shape, D, span: float, n_valid=None, dtype=None):
+    """[B, H, W, C] map on the card and D prepared rects per image of up
+    to ``span`` of the map; all valid, or ``n_valid`` of D on average."""
+    from frcnn_tpu_torch.ops import roi_pool as plain
+
+    H, W, C = shape
+    fm = torch.randn(B, H, W, C, generator=gen).to(
+        dtype or torch.bfloat16).cuda()
+    p0 = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H])
+    ext = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H]) * span
+    raw = torch.cat([p0 - 2, p0 + ext], dim=-1).floor()
+    rects = plain.prepare_roi_rects(raw, float(W), float(H)).cuda()
+    if n_valid is None:
+        valid = torch.ones(B, D, dtype=torch.bool)
+    else:
+        valid = torch.rand(B, D, generator=gen) < n_valid / D
+    return fm, rects, valid.cuda()
+
+
+def _roi_equal(K, plain, fm, rects, valid, what: str, k: int = 6):
+    """The ROI-pool kernel bitwise equal to its plain version (max is
+    order-free, so nothing may differ); returns the kernel's output."""
+    got = K.adaptive_max_pool_valid(fm, rects, valid, k, k)
+    torch.cuda.synchronize()
+    ref = plain.adaptive_max_pool(fm, rects, valid, k, k)
+    bits = torch.int16 if fm.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), ref.view(bits)):
+        n = int((got.view(bits) != ref.view(bits)).sum())
+        raise AssertionError(f"roi_pool {what}: kernel and plain outputs "
+                             f"differ in {n} values")
+    return got
+
+
 def check_roi_pool(gen):
     from frcnn_tpu_torch.ops import roi_pool as plain
     from frcnn_tpu_torch.ops import roi_pool_kernel as K
 
     t = time.perf_counter()
-    H, W, C, D, k = 29, 50, 384, 128, 6
-    fm = torch.randn(B, H, W, C, generator=gen).to(torch.bfloat16).cuda()
-    p0 = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H])
-    ext = torch.rand(B, D, 2, generator=gen) * torch.tensor([W, H]) * 0.8
-    raw = torch.cat([p0 - 2, p0 + ext], dim=-1).floor()
-    rects = plain.prepare_roi_rects(raw, float(W), float(H)).cuda()
-    valid = torch.ones(B, D, dtype=torch.bool, device="cuda")
-    got = K.adaptive_max_pool_valid(fm, rects, valid, k, k)
-    torch.cuda.synchronize()
-    ref = plain.adaptive_max_pool(fm, rects, valid, k, k)
-    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-        raise AssertionError("roi_pool: kernel and plain outputs differ")
+    for name, fm32, rects, valid, _ in _roi_edge_cases(gen):
+        for dt in (torch.float32, torch.bfloat16):
+            _roi_equal(K, plain, fm32.to(dt), rects, valid,
+                       f"{name} {str(dt)[6:]}")
+    log("kernels", "roi_pool on the backward's edge cases (rects smaller "
+        "than the grid sharing rows and bins, ties across rows and columns, "
+        "map edges, an all-invalid image, one-cell-wide rects, tall bins), "
+        "float32 and bf16: bitwise equal", t)
+    k = 6
+    for shape, D, n_valid in ((LARGE_FM[0], 128, None),
+                              (LARGE_FM[1], 128, None),
+                              (FM_HWC, TRAIN_ROIS, 96)):
+        t = time.perf_counter()
+        fm, rects, valid = _roi_inputs(gen, shape, D, 0.8, n_valid)
+        for dt in (torch.bfloat16, torch.float32):
+            _roi_equal(K, plain, fm.to(dt), rects, valid,
+                       f"fm {(B, *shape)} {str(dt)[6:]} D={D}")
+        ms = time_ms(lambda: K.adaptive_max_pool_valid(fm, rects, valid, k,
+                                                       k))
+        log("kernels", f"roi_pool fm {(B, *shape)}, {D} rects/image "
+            f"({int(valid.sum())} valid): bitwise equal in bf16 and float32; "
+            f"bf16 kernel {ms:.4f} ms", t)
+    t = time.perf_counter()
+    D = 128
+    fm, rects, valid = _roi_inputs(gen, FM_HWC, D, 0.8)
+    _roi_equal(K, plain, fm.float(), rects, valid, "serving shape float32")
+    got = _roi_equal(K, plain, fm, rects, valid, "serving shape bf16")
     ms = time_ms(lambda: K.adaptive_max_pool_valid(fm, rects, valid, k, k))
     pms = time_ms(lambda: plain.adaptive_max_pool(fm, rects, valid, k, k),
                   reps=10)
-    r = rects.to(torch.int64).cpu()
-    ext_x = (r[..., 2] - r[..., 0])[..., None]
-    ext_y = (r[..., 3] - r[..., 1])[..., None]
+    bms, by = _roi_bound(fm, rects, valid, got, k)
+    log("kernels", f"roi_pool fm {tuple(fm.shape)} bf16, {D} rects/image: "
+        f"bitwise equal (and in float32); kernel {ms:.4f} ms, plain "
+        f"{pms:.3f} ms, bound {bms:.5f} ms ({by}); no single PyTorch call "
+        f"pools a batch of rects", t)
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": 0.0, "library_ms": None}
+
+
+def _roi_bound(fm, rects, valid, out, k: int):
+    """Least time of the ROI-pool forward on these inputs: the map, rects,
+    valid flags and output moved once; one compare per window cell of
+    each valid roi's bins."""
+    C = fm.shape[-1]
+    r = rects.to(torch.int64)[valid].cpu()
+    ext_x = (r[:, 2] - r[:, 0])[:, None]
+    ext_y = (r[:, 3] - r[:, 1])[:, None]
     b = torch.arange(k)
     bins_x = -torch.div(-(b + 1) * ext_x, k, rounding_mode="floor") \
         - torch.div(b * ext_x, k, rounding_mode="floor")
     bins_y = -torch.div(-(b + 1) * ext_y, k, rounding_mode="floor") \
         - torch.div(b * ext_y, k, rounding_mode="floor")
     n_cmp = float((bins_y.sum(-1) * bins_x.sum(-1)).sum()) * C
-    n_bytes = fm.numel() * 2 + rects.numel() * 4 + valid.numel() \
-        + got.numel() * 2
-    bms, by = bound_ms(n_bytes, n_cmp, torch.bfloat16)
-    log("kernels", f"roi_pool fm {tuple(fm.shape)} bf16, {D} rects/image: "
-        f"bitwise equal; kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
-        f"{bms:.5f} ms ({by}); no single PyTorch call pools a batch of "
-        f"rects", t)
-    return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "max_abs_err": 0.0, "library_ms": None}
+    n_bytes = (fm.numel() + out.numel()) * fm.element_size() \
+        + rects.numel() * 4 + valid.numel()
+    return bound_ms(n_bytes, n_cmp, fm.dtype)
+
+
+def _block0_values(K, l, c, w27, b32, slope):
+    """block0 against its plain version on the planes (l, c): float32
+    rtol/atol 1e-4 (the same float32 sums in another order, no TF32);
+    bf16 rtol/atol 1e-2 (both round one float32 sum to bf16 once: one bf16
+    ulp apart). Returns (kernel output, max abs err, max rel err, values
+    that differ)."""
+    got = K.fused_block0(l, c, w27, b32, slope)
+    torch.cuda.synchronize()
+    ref = K.block0_plain(l, c, w27, b32, slope)
+    err = (got.float() - ref.float()).abs()
+    rel = float((err / ref.float().abs().clamp(min=1e-3)).max())
+    tol = 1e-4 if l.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    return got, float(err.max()), rel, int((err > 0).sum())
 
 
 def check_block0(gen):
@@ -308,20 +393,24 @@ def check_block0(gen):
     w = (torch.randn(Fo, 3, 3, 3, generator=gen) * 0.3).cuda()
     bias = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     slope = torch.tensor([0.25], device="cuda")
+    # ragged tiles, a random pad ring, and a negative slope (PReLU is then
+    # not monotone: the kernel's other epilogue)
+    ragged = [K.pack_padded(torch.randn(n, h + 2, w_ + 2, 3, generator=gen)
+                            .cuda()) for n, h, w_ in RAGGED]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         w27, b32 = K.block0_weights(w, bias, dt)
+        for (n, h, w_), planes in zip(RAGGED, ragged):
+            for a in (0.25, -0.5):
+                l, c = (p.to(dt) for p in planes)
+                _, err, rel, n_mis = _block0_values(
+                    K, l, c, w27, b32, torch.tensor([a], device="cuda"))
+                log("kernels", f"fused_block0 {str(dt)[6:]} B={n} {h}x{w_} "
+                    f"(ragged tiles, random pad ring, slope {a}): max abs "
+                    f"err {err:.3g}, max rel err {rel:.3g}, {n_mis} values "
+                    f"differ", t)
         l, c = lum4.to(dt), chroma.to(dt)
-        got = K.fused_block0(l, c, w27, b32, slope)
-        torch.cuda.synchronize()
-        ref = K.block0_plain(l, c, w27, b32, slope)
-        err = (got.float() - ref.float()).abs()
-        rel = float((err / ref.float().abs().clamp(min=1e-3)).max())
-        if dt == torch.float32:
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-        else:
-            # both round one float32 sum to bf16 once: one bf16 ulp apart
-            torch.testing.assert_close(got, ref, rtol=1e-2, atol=1e-2)
+        got, err, rel, n_mis = _block0_values(K, l, c, w27, b32, slope)
         ms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope))
         pms = time_ms(lambda: K.block0_plain(l, c, w27, b32, slope), reps=10)
         n_ops = 2.0 * B * (H // 2) * (W // 2) * Fo * 4 * 27
@@ -336,12 +425,13 @@ def check_block0(gen):
             F.prelu(F.conv2d(xi, wd, bd, padding=1), sd), 2,
             ceil_mode=True))
         res[dt] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                   "bound_by": by, "max_abs_err": float(err.max()),
+                   "bound_by": by, "max_abs_err": err,
                    "library_ms": lib_ms}
         log("kernels", f"fused_block0 {str(dt)[6:]} B={B} {H}x{W}: max abs "
-            f"err {float(err.max()):.3g}, max rel err {rel:.3g}; kernel "
-            f"{ms:.4f} ms, plain {pms:.3f} ms, conv+prelu+pool call "
-            f"{lib_ms:.4f} ms, bound {bms:.5f} ms ({by})", t)
+            f"err {err:.3g}, max rel err {rel:.3g}, {n_mis} of "
+            f"{got.numel()} values differ; kernel {ms:.4f} ms, plain "
+            f"{pms:.3f} ms, conv+prelu+pool call {lib_ms:.4f} ms, bound "
+            f"{bms:.5f} ms ({by})", t)
     return res[torch.bfloat16]
 
 
@@ -391,11 +481,11 @@ def check_block0_2conv(gen):
     b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     s0, s1 = 0.25, 0.1
     ragged = [pack_padded(torch.randn(n, h + 2, w + 2, 3, generator=gen)
-                          .cuda()) for n, h, w in RAGGED_2CONV]
+                          .cuda()) for n, h, w in RAGGED]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
-        for (n, h, w), planes in zip(RAGGED_2CONV, ragged):
+        for (n, h, w), planes in zip(RAGGED, ragged):
             l, c = (x.to(dt) for x in planes)
             _, err, tol, n_mis = _check_2conv_values(K, l, c, p)
             log("kernels", f"fused_block0_2conv {str(dt)[6:]} B={n} {h}x{w} "
@@ -492,15 +582,27 @@ def check_block0_s8out(gen):
     w = (torch.randn(Fo, 3, 3, 3, generator=gen) * 0.3).cuda()
     bias = (torch.randn(Fo, generator=gen) * 0.1).cuda()
     slope = torch.tensor([0.25], device="cuda")
+    ragged = [K.pack_padded(torch.randn(n, h + 2, w_ + 2, 3, generator=gen)
+                            .cuda()) for n, h, w_ in RAGGED]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         w27, b32 = K.block0_weights(w, bias, dt)
+
+        def s8_values(l, c, what):
+            inv = _inv(_absmax_scale(K.block0_plain(l, c, w27, b32, slope)))
+            got = K.fused_block0(l, c, w27, b32, slope, inv_out=inv)
+            torch.cuda.synchronize()
+            ref = K.block0_plain(l, c, w27, b32, slope, inv_out=inv)
+            return (got, inv) + _flips(got, ref, what)
+
+        for (n, h, w_), rp in zip(RAGGED, ragged):
+            what = f"block0_s8out {str(dt)[6:]} B={n} {h}x{w_}"
+            got, _, step, share = s8_values(*(x.to(dt) for x in rp), what)
+            log("kernels-int8", f"{what} (ragged tiles, random pad ring): "
+                f"int8 out {step} step apart in {100 * share:.5f}% of "
+                f"{got.numel()} values", t)
         l, c = (x.to(dt) for x in planes)
-        inv = _inv(_absmax_scale(K.block0_plain(l, c, w27, b32, slope)))
-        got = K.fused_block0(l, c, w27, b32, slope, inv_out=inv)
-        torch.cuda.synchronize()
-        ref = K.block0_plain(l, c, w27, b32, slope, inv_out=inv)
-        step, share = _flips(got, ref, f"block0_s8out {str(dt)[6:]}")
+        got, inv, step, share = s8_values(l, c, f"block0_s8out {str(dt)[6:]}")
         ms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope,
                                             inv_out=inv))
         fms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope))
@@ -558,7 +660,7 @@ def check_block0_2conv_int8(gen, float_res):
     w1q, s_w = quantize_weight(w1)
     s0, s1 = 0.25, 0.1
     cases = [(n, (h, w), torch.randn(n, h + 2, w + 2, 3, generator=gen)
-              .cuda()) for n, h, w in RAGGED_2CONV]
+              .cuda()) for n, h, w in RAGGED]
     cases += [(B, hw, P[hw]) for hw in (LARGE_HW[1], LARGE_HW[0])]
     res = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -841,7 +943,92 @@ def phase_detect(kernels):
         f"{n_calls} calls", t)
     for k, n in launches.items():
         kernels[k]["launches"] = n
+    t = time.perf_counter()
+    dev = device_ms_per_call(lambda: det.detect((lum4, chroma), hw_dev), {
+        k: DEVICE_FRAGMENTS[k] for k in modules})
+    for k, v in dev.items():
+        kernels[k]["device_ms"] = v
+    log("detect", f"device time per bf16 detect (torch.profiler, mean per "
+        f"launch x launches per call): {_device_text(dev)}", t)
+    check_roi_pool_detect(cfg, pnet, cnet, (lum4, chroma), hw_dev)
     phase_profile(det, (lum4, chroma), hw_dev)
+
+
+# kernel -> (name fragment of its bf16 mode in a trace, launches per call)
+DEVICE_FRAGMENTS = {
+    "nms_keep_mask": ("nms_keep_kernel", 2),
+    "roi_pool": ("roi_pool_kernel", 1),
+    "fused_block0": ("block0_kernel<__nv_bfloat16, __nv_bfloat16", 1),
+    "block0_s8out": ("block0_kernel<__nv_bfloat16, signed char", 1),
+}
+
+
+def device_ms_per_call(fn, frags: dict, n_calls: int = 10):
+    """Device ms per call of ``fn()`` of each kernel in ``frags`` {name:
+    (fragment, launches per call)}: :func:`kernel_device_ms`'s mean per
+    launch times the launches per call. None for each where the trace
+    recorded no device time."""
+    got = kernel_device_ms(fn, [f for f, _ in frags.values()], n_calls)
+    if got is None:
+        return dict.fromkeys(frags)
+    return {k: got[f][0] * n for k, (f, n) in frags.items()}
+
+
+def _device_text(dev: dict) -> str:
+    return ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                     for k, v in dev.items())
+
+
+def _kept_roi_pool(fn):
+    """Run ``fn()`` with a hook on the ROI-pool forward's wrapper; returns
+    the inputs of its first call (cloned)."""
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    kept = []
+    real = K.adaptive_max_pool_valid
+
+    def keep(fm, rects, valid, kh, kw):
+        if not kept:
+            kept.append((fm.clone(), rects.clone(), valid.clone(), kh))
+        return real(fm, rects, valid, kh, kw)
+
+    K.adaptive_max_pool_valid = keep
+    try:
+        fn()
+    finally:
+        K.adaptive_max_pool_valid = real
+    torch.cuda.synchronize()
+    return kept[0]
+
+
+def _roi_stats(rects, valid) -> str:
+    r = rects.to(torch.int64)[valid].cpu()
+    ext = (r[:, 2:] - r[:, :2]).float().mean(0)
+    return (f"{int(valid.sum())} valid of {valid.numel()} roi slots, mean "
+            f"roi {float(ext[0]):.1f} x {float(ext[1]):.1f} cells")
+
+
+def check_roi_pool_detect(cfg, pnet, cnet, planes, hw_dev):
+    """The ROI-pool forward on the inputs of one bf16 detect (a Detector
+    built under a hook on the wrapper, which its program binds): bitwise
+    its plain version, and the same inputs in float32; its time and
+    bound."""
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.ops import roi_pool as plain
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    t = time.perf_counter()
+    fm, rects, valid, k = _kept_roi_pool(lambda: Detector(
+        cfg, pnet, cnet, device="cuda").detect(planes, hw_dev))
+    got = _roi_equal(K, plain, fm, rects, valid, "detect's inputs", k)
+    _roi_equal(K, plain, fm.float(), rects, valid, "detect's inputs float32",
+               k)
+    ms = time_ms(lambda: K.adaptive_max_pool_valid(fm, rects, valid, k, k))
+    bms, by = _roi_bound(fm, rects, valid, got, k)
+    log("detect", f"roi_pool on the detect's own inputs: fm "
+        f"{tuple(fm.shape)} {str(fm.dtype)[6:]}, {_roi_stats(rects, valid)}"
+        f": bitwise equal (and in float32); kernel {ms:.4f} ms, bound "
+        f"{bms:.5f} ms ({by})", t)
 
 
 PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
@@ -1233,6 +1420,13 @@ def phase_detect_int8(kernels):
     det, batches, n = _int8_family("detect-int8", cfg, pnet, cnet, 5,
                                    "block0_s8out")
     kernels["block0_s8out"]["launches"] = n
+    t = time.perf_counter()
+    planes, true_hw = batches[IMAGE_HW]
+    dev = device_ms_per_call(lambda: det.detect(planes, true_hw), {
+        "block0_s8out": DEVICE_FRAGMENTS["block0_s8out"]})
+    kernels["block0_s8out"]["device_ms"] = dev["block0_s8out"]
+    log("detect-int8", f"device time per vgg_small int8 bf16 detect "
+        f"(torch.profiler): {_device_text(dev)}", t)
     profile_int8("vgg_small", det, batches[IMAGE_HW])
     del det, batches
     torch.cuda.empty_cache()
@@ -1512,15 +1706,30 @@ def check_roi_pool_bwd_step(trainer, batch):
                                                      k, k)
     ms = time_ms(run)
     split = _roi_pass_split(run)
-    r = rects.to(torch.int64)[valid].cpu()
-    ext = (r[:, 2:] - r[:, :2]).float().mean(0)
     bms, by = bound_ms(_roi_bwd_bytes(fm, rects, valid, k), 0.0, fm.dtype)
     log("train", f"roi_pool_bwd on the step's own inputs: fm "
-        f"{tuple(fm.shape)} {str(fm.dtype)[6:]}, {int(valid.sum())} valid of "
-        f"{valid.numel()} roi slots, mean roi {float(ext[0]):.1f} x "
-        f"{float(ext[1]):.1f} cells: max abs err {err:.3g} ({tol}), float32 "
+        f"{tuple(fm.shape)} {str(fm.dtype)[6:]}, {_roi_stats(rects, valid)}"
+        f": max abs err {err:.3g} ({tol}), float32 "
         f"{err32:.3g} ({tol32}), two launches bitwise equal; kernel "
         f"{ms:.4f} ms ({split}), bound {bms:.5f} ms ({by})", t)
+
+
+def check_roi_pool_step(trainer, batch, res):
+    """The ROI-pool forward on the inputs of one bf16 train step, kept by
+    a hook on the wrapper: bitwise its plain version; its device time per
+    step."""
+    from frcnn_tpu_torch.ops import roi_pool as plain
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    t = time.perf_counter()
+    fm, rects, valid, k = _kept_roi_pool(lambda: trainer.run_step(batch))
+    _roi_equal(K, plain, fm.detach(), rects, valid, "train step's inputs", k)
+    dev = device_ms_per_call(lambda: trainer.run_step(batch), {
+        "roi_pool": DEVICE_FRAGMENTS["roi_pool"]}, n_calls=5)
+    res["device_ms_train_step"] = dev["roi_pool"]
+    log("train", f"roi_pool on the step's own inputs ({str(fm.dtype)[6:]}, "
+        f"{_roi_stats(rects, valid)}): bitwise equal; device time per step "
+        f"(torch.profiler): {_device_text(dev)}", t)
 
 
 def check_pool_bwd(gen):
@@ -1719,6 +1928,7 @@ def phase_train(kernels):
             for k in ("roi_pool_bwd", "pool_bwd"):
                 kernels[k]["launches"] = launches[k]
             check_roi_pool_bwd_step(trainer, batch)
+            check_roi_pool_step(trainer, batch, kernels["roi_pool"])
         else:
             del trainer
             torch.cuda.empty_cache()
@@ -1749,7 +1959,10 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "device_ms": r.get("device_ms")})
+        if "device_ms_train_step" in r:
+            line[-1]["device_ms_train_step"] = r["device_ms_train_step"]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

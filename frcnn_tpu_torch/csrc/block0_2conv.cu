@@ -106,10 +106,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace frcnn;
 
 constexpr int kF = 64;          // channels of both convolutions
 constexpr int kY0StrideF32 = 68;  // floats per pixel of the f32 y0 tile
@@ -222,17 +225,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&two);
 }
 
-// clip(round(v * inv), -127, 127) as the int8's byte, round half to even:
-// the lower clip, then one conversion that rounds to nearest even and
-// saturates at 127
-__device__ __forceinline__ uint32_t quant8(float v, float inv) {
-  int q;
-  asm("cvt.rni.sat.s8.f32 %0, %1;"
-      : "=r"(q)
-      : "f"(fmaxf(__fmul_rn(v, inv), -127.0f)));
-  return static_cast<uint32_t>(q) & 0xffu;
-}
-
 // two adjacent output channels into the staged tile
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float lo, float hi,
                                        float) {
@@ -258,33 +250,6 @@ __device__ __forceinline__ void store4(int8_t* dst, const float (&m)[4],
   *reinterpret_cast<uint32_t*>(dst) =
       quant8(m[0], inv) | (quant8(m[1], inv) << 8) |
       (quant8(m[2], inv) << 16) | (quant8(m[3], inv) << 24);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-// 16 bytes, of which the first src_bytes (0 to 16) are read, the rest
-// zeroed
-__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -357,55 +322,6 @@ __device__ __forceinline__ void pool_store(float (&v)[8][4], int pr, int cs,
         store2(dst + 8 * n, v[n][2 * h], v[n][2 * h + 1], inv_out);
     }
   }
-}
-
-// wgmma (one warpgroup of 4 warps issues a 64-row product): A from the
-// warps' registers, B from shared memory through a matrix descriptor.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Descriptor of a K-major operand whose rows of `row_bytes` (128: swizzle
-// mode 1, 64: mode 2) hold their 16-byte chunks XOR-swizzled by the row's
-// address bits (the layouts of w1s), 8-row groups 8 * row_bytes apart.
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  constexpr uint64_t kMode = kRowBytes == 128 ? 1 : 2;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) |
-         (kMode << 62);
-}
-
-// D (64 x 64, float32) += A (64 x 16 bf16, registers) * B (descriptor)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // D (64 x 64, int32) += A (64 x 32 int8, registers) * B (descriptor)
@@ -865,7 +781,7 @@ __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
     // the previous tile's conv1 is done with y0
     cp_async_wait_all();
     // w1 is read by wgmma through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
     STAMP(1);   // the patch wait
     unstage<T, kQ, O>(stage, shift, ps);
@@ -927,33 +843,13 @@ int launch(const void* lum4, const void* chroma, const void* w0,
     return (int)cudaErrorInvalidValue;
   if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
   const int smem = Smem<T, kQ, O>::total;
-  auto* kernel = block0_2conv_kernel<T, kQ, O>;
-  // persistent: as many blocks as the current card holds at once (its SMs
-  // times the blocks an SM holds), at most one per tile. The shared-memory
-  // attribute and the SM count belong to a device, so both are taken at
-  // the first launch on each device and kept per device.
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> resident_of[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  constexpr auto kernel = block0_2conv_kernel<T, kQ, O>;
+  // persistent: as many blocks as the current card holds at once, at most
+  // one per tile
+  int resident = 0;
+  cudaError_t e = resident_blocks<block0_2conv_kernel<T, kQ, O>>(
+      M::kThreads, smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int resident = resident_of[dev].load(std::memory_order_acquire);
-  if (resident == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        M::kThreads, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident = sms * per_sm;
-    resident_of[dev].store(resident, std::memory_order_release);
-  }
   const long long tiles = (long long)batch * ((Ho + M::PH - 1) / M::PH) *
                           ((Wo + M::PW - 1) / M::PW);
   if (tiles > 0x7fffffffLL || (long long)batch * 8 * Hc * Wc > 0x7fffffffLL)

@@ -20,6 +20,12 @@ scale, and the product by it (not a division by ``s``) is what the Pallas
 kernel rounds. That mode is its own ``CudaKernel`` (:data:`S8_KERNEL`),
 so its launches are counted apart.
 
+The kernel computes bf16 planes on tensor cores (``wgmma``: one row of
+an implicit GEMM per output pixel, its 48 patch values against the four
+pooling phases' weights, which it re-tiles from ``w27`` itself) and takes
+F = 64 there; float32 planes stay on CUDA cores in float32 for any F
+that is a multiple of 16.
+
 On a CPU tensor :func:`fused_block0` runs the plain version
 (:func:`block0_plain`: unpack the planes, one float32 convolution, bias,
 PReLU, pool); on a CUDA tensor it launches the kernel or raises.
@@ -155,8 +161,9 @@ def fused_block0(lum4, chroma, w27, bias, slope, inv_out=None):
     check_cuda("w27", w27, dt, (27, f))
     check_cuda("bias", bias, torch.float32, (f,))
     check_cuda("slope", slope, torch.float32, (1,))
-    if f % 16:
-        raise ValueError(f"block0 kernel needs F % 16 == 0, got F={f}")
+    if f % 16 or (dt == torch.bfloat16 and f != 64):
+        raise ValueError(f"block0 kernel takes F = 64 for bfloat16 planes "
+                         f"and F % 16 == 0 for float32; got F={f} in {dt}")
     shape = (B, Hc - 1, Wc - 1, f)
     if inv_out is None:
         out = torch.empty(shape, dtype=dt, device=lum4.device)

@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` exports ``extern "C"`` launchers that take raw device
 pointers, sizes and a ``cudaStream_t``, launch on that stream and return
-``cudaGetLastError()``. No source includes a PyTorch header, so one plain
+``cudaGetLastError()``; the ``csrc/*.cuh`` headers they share are part of
+the build's hash. No source includes a PyTorch header, so one plain
 ``nvcc`` call builds them all into one shared library in seconds; it is
 loaded with ``ctypes``. The build happens at first use, never at import,
 into ``frcnn_tpu_torch/_build/<hash of sources and flags>/`` (git-ignored):
@@ -54,13 +55,18 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers():
+    """The headers the sources include: part of the build's hash."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library unless a library of
     the same sources and flags exists; returns its path."""
     srcs = sources()
     flags = (*NVCC_FLAGS, *EXTRA_FLAGS)
     digest = hashlib.sha256(" ".join(flags).encode())
-    for s in srcs:
+    for s in srcs + headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     out_dir = BUILD_DIR / digest.hexdigest()[:16]

@@ -46,12 +46,20 @@ def adaptive_max_pool_valid(fm, rects, valid, kh: int, kw: int):
     """fm [B, H, W, C] (float32 or bfloat16), rects [B, D, 4] prepared
     feature rects (integer valued, truncated to int32), valid [B, D] bool.
     Returns [B, D, kh, kw, C] in the dtype of ``fm``; rows with
-    ``valid == False`` are zero."""
+    ``valid == False`` are zero. The kernel moves 16 bytes of channels per
+    access, so it needs C to be a multiple of 8 (bfloat16) or 4 (float32),
+    and holds at most 8 column bins: kh and kw at most 8."""
     if fm.device.type == "cpu":
         return plain.adaptive_max_pool(fm, rects, valid, kh, kw)
     B, H, W, C = fm.shape
     D = rects.shape[1]
+    vec = 16 // fm.element_size()
+    if C % vec or not (1 <= kh <= 8 and 1 <= kw <= 8):
+        raise ValueError(f"roi_pool kernel: takes C a multiple of {vec} "
+                         f"({fm.dtype}) and 1 <= kh, kw <= 8; got C={C}, "
+                         f"kh={kh}, kw={kw}")
     rects_i = rects.to(torch.int32).contiguous()
+    fm = _aligned16(fm)
     check_cuda("fm", fm, fm.dtype, (B, H, W, C))
     check_cuda("rects", rects_i, torch.int32, (B, D, 4))
     check_cuda("valid", valid, torch.bool, (B, D))
@@ -74,7 +82,7 @@ def tie_mask_rows(H: int, kh: int) -> int:
 
 def _aligned16(t):
     """``t``, or a copy of it when its data is not 16-byte aligned (the
-    kernel moves up to 16 bytes of channels per access)."""
+    kernels move 16 bytes of channels per access)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

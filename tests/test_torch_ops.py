@@ -479,6 +479,17 @@ def _dispatch_case(name):
         return roi_pool_kernel.adaptive_max_pool_valid_backward, \
             troi.adaptive_max_pool_backward, (fm, rects, valid, g, 6, 6), \
             roi_pool_kernel.BWD_KERNEL
+    if name == "roi_pool_bf16_portrait":
+        # a tall map, C = 16 (two 16-byte vectors of bf16), rects smaller
+        # than the grid and on the map's edges, one slot invalid
+        fm = _t(rng.normal(size=(2, 13, 5, 16)).astype(np.float32))
+        rects = torch.tensor([[[0, 0, 5, 13], [3, 9, 5, 13], [1, 2, 2, 3]],
+                              [[4, 0, 5, 4], [0, 5, 5, 8], [2, 2, 4, 11]]],
+                             dtype=torch.float32)
+        valid = torch.tensor([[True, True, False], [True, True, True]])
+        return roi_pool_kernel.adaptive_max_pool_valid, \
+            troi.adaptive_max_pool, (fm.bfloat16(), rects, valid, 6, 6), \
+            roi_pool_kernel.KERNEL
     if name == "pool_bwd":
         x = _t(np.round(rng.normal(size=(2, 7, 9, 8)) * 2).astype(np.float32))
         g = _t(rng.normal(size=(2, 4, 5, 8)).astype(np.float32))
@@ -490,12 +501,17 @@ def _dispatch_case(name):
         _t(rng.normal(size=(16, 3, 3, 3)).astype(np.float32)),
         torch.zeros(16), torch.float32)
     args = (_t(lum4), _t(chroma), w27, bias, torch.tensor([0.25]))
+    if name == "block0_s8out":
+        args += (torch.tensor([4.0]),)        # inv_out: the int8 mode
+        return block0_kernel.fused_block0, block0_kernel.block0_plain, \
+            args, block0_kernel.S8_KERNEL
     return block0_kernel.fused_block0, block0_kernel.block0_plain, args, \
         block0_kernel.KERNEL
 
 
 @pytest.mark.parametrize("name", ["nms", "roi_pool", "block0",
-                                  "roi_pool_bwd", "pool_bwd"])
+                                  "roi_pool_bwd", "pool_bwd", "block0_s8out",
+                                  "roi_pool_bf16_portrait"])
 def test_wrapper_runs_plain_version_on_cpu(name):
     """On CPU tensors each wrapper returns its plain version's result
     exactly and counts no launch."""
