@@ -88,10 +88,26 @@ Phases, each printing one flushed line with its seconds:
            inputs, and its device time per step
   train-profile  device time of a bf16 train step by kernel group and the
            busy share, as the profile phase does for detect
+  data     train from image files and evaluate mAP: 40 training, 16
+           validation and 4 background seeded 1280x720 frames written as
+           PNG, one corrupt PNG listed for training, a duplo CSV, the
+           manifest; which decoder reads them (the native host library
+           where it builds, else the numpy PNG reader); where the library
+           built, 4 batches of its path against 4 of the Python path; the
+           host's ms per batch, bare and through PrefetchingIterator, and
+           the corrupt file skipped and logged; 6 bf16 Trainer steps from
+           the prefetcher (finite losses, none skipped, the ROI-pool
+           forward and backward and pool backward kernels launched, ms per
+           step beside the train phase's fixed batch), a snapshot; the
+           trainer's weights in the serving Detector and evaluate_map over
+           the validation files (the result, the block0, NMS and ROI-pool
+           launches, the wall time); float32 collect_detections through the
+           kernels against the plain versions on the same batches
 
 then one JSON line of per-kernel numbers (with ``device_ms``, the device
-time per path call where it was measured, and NMS's ``device_ms_large`` per
-vgg_large 480x1000 detect), the card's name and power limit,
+time per path call where it was measured, NMS's ``device_ms_large`` per
+vgg_large 480x1000 detect, and ``launches_data``, the launches of the data
+phase's training and evaluation), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -105,6 +121,7 @@ import dataclasses
 import faulthandler
 import importlib
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -2108,6 +2125,343 @@ def phase_train(kernels):
     return steps_ms
 
 
+# -- data -----------------------------------------------------------------------
+
+DATA_HW = (720, 1280)                    # the frames on disk (a 1280->800 resize)
+DATA_FRAMES = {"train": 40, "val": 16, "background": 4}
+DATA_STEPS = 6
+HOST_BATCHES = 6     # 6 x 7 training slots >= one epoch of the 41 files
+CORRUPT = "corrupt.png"
+
+
+def _write_dataset(root: Path) -> Path:
+    """Seeded 1280x720 PNG frames (``_frames``: smooth noise plus the six
+    shaded bricks) in the duplo layout: a CSV of their boxes, the
+    background frames in a directory of their own, one corrupt PNG listed
+    as a training file, and the manifest. Returns the manifest's path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from frcnn_tpu_torch.data import codec
+    from frcnn_tpu_torch.data.importers import (
+        create_duplo_manifest,
+        save_manifest,
+    )
+
+    (root / "bg").mkdir()
+    n_fg = DATA_FRAMES["train"] + DATA_FRAMES["val"]
+    n_all = n_fg + DATA_FRAMES["background"]
+
+    def chunk(start: int):
+        frames, boxes, classes = _frames(100 + start, 4, DATA_HW)
+        rows = []
+        for i, (img, bx, cl) in enumerate(zip(frames, boxes, classes)):
+            k = start + i
+            if k >= n_all:
+                break
+            if k >= n_fg:
+                codec.write_png(str(root / "bg" / f"bg{k:03d}.png"), img, 1)
+                continue
+            codec.write_png(str(root / f"f{k:03d}.png"), img, 1)
+            rows += [f'"f{k:03d}.png", {b[0]:.0f}, {b[1]:.0f}, {b[2]:.0f}, '
+                     f'{b[3]:.0f}, "brick{c}", {c}, "M", 0'
+                     for b, c in zip(bx, cl)]
+        return rows
+
+    with ThreadPoolExecutor(8) as pool:
+        rows = [r for rs in pool.map(chunk, range(0, n_all, 4)) for r in rs]
+    (root / "boxes.csv").write_text("\n".join(rows) + "\n")
+    manifest = create_duplo_manifest("smoke", str(root / "boxes.csv"),
+                                     str(root / "bg"),
+                                     validation_size=DATA_FRAMES["val"],
+                                     seed=0)
+    (root / CORRUPT).write_bytes(b"\x89PNGx")
+    manifest["training_set"].append(CORRUPT)
+    manifest["ground_truth"][CORRUPT] = {
+        "image_file_name": CORRUPT,
+        "rois": [{"rect": [10.0, 10.0, 90.0, 90.0], "class_name": "brick0",
+                  "class_index": 0}]}
+    save_manifest(manifest, str(root / "manifest.json"))
+    return root / "manifest.json"
+
+
+class _LogCapture(logging.Handler):
+    """The pipeline's warnings (skipped files), kept for a check."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+class _Recorder:
+    """A ``BatchIterator``'s validation batches, kept as they are handed
+    out, so that more detectors can score the same inputs (``_Replay``)."""
+
+    def __init__(self, it):
+        self.it, self.batches = it, []
+
+    def padded_validation_batch(self, n: int):
+        self.batches.append(self.it.padded_validation_batch(n))
+        return self.batches[-1]
+
+
+class _Replay:
+    def __init__(self, batches):
+        self.batches = iter(batches)
+
+    def padded_validation_batch(self, n: int):
+        return next(self.batches)
+
+
+def _compare_iterators(cfg, manifest, t):
+    """4 batches of the native path against 4 of the Python path, with
+    augmentation off and the same seed (``tests/test_pipeline_native.py``'s
+    tolerances)."""
+    from frcnn_tpu_torch.config import AugmentationConfig
+    from frcnn_tpu_torch.data.pipeline import BatchIterator
+
+    cfg = cfg.replace(augmentation=AugmentationConfig())
+    its = [BatchIterator(cfg, str(manifest), seed=3, use_native=n)
+           for n in (True, False)]
+    if [it.use_native for it in its] != [True, False]:
+        raise AssertionError("the native path was not taken")
+    worst = 0.0
+    for _ in range(4):
+        a, b = (it.next_training_batch() for it in its)
+        for f in ("true_hw", "gt_mask", "gt_classes", "is_background"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"data: native and Python {f} differ")
+        torch.testing.assert_close(a.gt_boxes, b.gt_boxes, rtol=0, atol=1e-3)
+        torch.testing.assert_close(a.image, b.image, rtol=0, atol=3e-3)
+        worst = max(worst, float((a.image - b.image).abs().max()))
+    log("data", f"native path == Python path over 4 batches of {B}: "
+        f"true_hw, gt_mask, gt_classes, is_background equal, gt_boxes "
+        f"within 1e-3, images within 3e-3 (largest {worst:.3g})", t)
+
+
+def _host_ms(it, n: int) -> float:
+    t = time.perf_counter()
+    for _ in range(n):
+        it.next_training_batch()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def _host_split(cfg, path: Path) -> str:
+    """Median ms of the Python path's stages on one frame (3 runs)."""
+    from frcnn_tpu_torch.data import codec
+    from frcnn_tpu_torch.data.pipeline import find_target_size, resize_image
+    from frcnn_tpu_torch.ops.color import convert_color
+
+    stages = {"decode": lambda: codec.read_rgb(str(path)),
+              "to float + color": lambda: convert_color(
+                  rgb.astype(np.float32) / 255.0, cfg.color_space),
+              "resize": lambda: resize_image(img, tw, th)}
+    rgb = codec.read_rgb(str(path))
+    img = convert_color(rgb.astype(np.float32) / 255.0, cfg.color_space)
+    tw, th = find_target_size(img.shape[1], img.shape[0],
+                              cfg.target_smaller_side, cfg.max_pixel_size)
+    out = []
+    for name, fn in stages.items():
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out.append(f"{name} {statistics.median(times):.1f} ms")
+    return ", ".join(out)
+
+
+def _match_detections(a, b, tol: float, what: str = "detections"):
+    """Each entry of ``a`` has one in ``b`` of the same image and class
+    with box and score within ``tol`` (and the counts are equal)."""
+    if len(a) != len(b):
+        raise AssertionError(f"data f32: {len(a)} {what} through the "
+                             f"kernels, {len(b)} through the plain versions")
+    free = {}
+    for e in b:
+        free.setdefault(e["image"], []).append(e)
+    for d in a:
+        cands = free.get(d["image"], [])
+        for j, e in enumerate(cands):
+            if (e["class"] == d["class"]
+                    and abs(e["score"] - d["score"]) <= tol
+                    and max(abs(x - y) for x, y in zip(e["box"], d["box"]))
+                    <= tol):
+                del cands[j]
+                break
+        else:
+            raise AssertionError(f"data f32: {what[:-1]} {d} through the "
+                                 f"kernels has no plain counterpart within "
+                                 f"{tol}")
+
+
+def phase_data(kernels, fixed_ms_step: float):
+    """Train from image files and evaluate mAP: the host pipeline
+    (decode, resize, batch) into the Trainer, its weights into the serving
+    Detector, ``evaluate_map`` over the validation files."""
+    import tempfile
+
+    from frcnn_tpu_torch.config import serving_config
+    from frcnn_tpu_torch.data import codec, native
+    from frcnn_tpu_torch.data.pipeline import BatchIterator, PrefetchingIterator
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.detect.evaluation import (
+        collect_detections,
+        evaluate_map,
+    )
+    from frcnn_tpu_torch.models.factory import models_from_state_dicts
+    from frcnn_tpu_torch.ops import (
+        block0_kernel,
+        nms_kernel,
+        pool_bwd_kernel,
+        roi_pool_kernel,
+    )
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    capture = _LogCapture()
+    logging.getLogger("frcnn_tpu_torch.data").addHandler(capture)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        manifest = _write_dataset(root)
+        log("data", f"{DATA_FRAMES} frames of {DATA_HW[1]}x{DATA_HW[0]} "
+            f"written as PNG, one corrupt PNG ({CORRUPT}) listed for "
+            f"training, duplo CSV -> manifest", t)
+        t = time.perf_counter()
+        lib = native.available()
+        why = "built" if lib else "not available: " + " | ".join(
+            ln for ln in native.build_error().splitlines() if "error" in ln)
+        log("data", f"native host library {why}; frames decode through "
+            f"the {codec.decoder()}", t)
+        cfg = _train_config("bfloat16").replace(
+            examples_base_path=str(root), background_base_path=str(root / "bg"))
+        t = time.perf_counter()
+        if lib:
+            _compare_iterators(cfg, manifest, t)
+        else:
+            log("data", "native vs Python batches: not run, the native "
+                "library did not build", t)
+
+        t = time.perf_counter()
+        bare = BatchIterator(cfg, str(manifest), seed=1)
+        bare_ms = _host_ms(bare, HOST_BATCHES)
+        pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=1))
+        try:
+            pre_ms = _host_ms(pre, 3)
+        finally:
+            pre.close()
+        skipped = [m for m in capture.messages if CORRUPT in m]
+        if not skipped:
+            raise AssertionError(f"data: {CORRUPT} was not skipped and "
+                                 f"logged in {HOST_BATCHES} batches")
+        split = _host_split(cfg, root / bare.training.items[0])
+        log("data", f"host batches of {B} at {IMAGE_HW[0]}x{IMAGE_HW[1]} "
+            f"({'native' if bare.use_native else 'Python'} path): "
+            f"{bare_ms:.1f} ms/batch bare over {HOST_BATCHES}, "
+            f"{pre_ms:.1f} ms/batch through PrefetchingIterator(depth=2) "
+            f"over 3 with nothing else running; per frame {split}; "
+            f"{CORRUPT} skipped and logged: {skipped[0]!r}", t)
+
+        # train from the files: the slice's main path, counts read around it
+        t = time.perf_counter()
+        counted = {"roi_pool": roi_pool_kernel.KERNEL,
+                   "roi_pool_bwd": roi_pool_kernel.BWD_KERNEL,
+                   "pool_bwd": pool_bwd_kernel.KERNEL}
+        trainer = Trainer(cfg, device="cuda", seed=0)
+        pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=2))
+        for k in counted.values():
+            k.launches = 0
+        try:
+            ms, times = [], []
+            for _ in range(DATA_STEPS):
+                t_step = time.perf_counter()
+                ms.append(trainer.run_step(pre.next_training_batch()))
+                times.append(time.perf_counter() - t_step)
+        finally:
+            pre.close()
+        launches = {k: v.launches for k, v in counted.items()}
+        for m in ms:
+            if m["skipped"] != 0 or not all(
+                    np.isfinite(m[k]) for k in ("pcls", "preg", "dcls",
+                                                "dreg")):
+                raise AssertionError(f"data train: skipped or non-finite "
+                                     f"step {m}")
+        if not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"data train: launches {launches}")
+        for k, n in launches.items():
+            kernels[k]["launches_data"] = n
+        step_ms = statistics.mean(times[1:]) * 1e3
+        snap = root / "smoke.ckpt"
+        trainer.save_snapshot(str(snap))
+        losses = ", ".join(f"{k} {ms[-1][k]:.4f}"
+                           for k in ("pcls", "preg", "dcls", "dreg"))
+        log("data", f"bf16 train from files, B={B}: {DATA_STEPS} steps, "
+            f"every loss finite, none skipped (last: {losses}); "
+            f"{step_ms:.1f} ms/step wall over steps 2-{DATA_STEPS} "
+            f"(first {times[0] * 1e3:.1f} ms) against {fixed_ms_step:.1f} "
+            f"ms/step on the [train] phase's fixed batch; launches "
+            f"{launches}; snapshot {snap.stat().st_size} bytes", t)
+
+        # evaluate: the trainer's weights in the serving Detector
+        t = time.perf_counter()
+        serve = serving_config(cfg).replace(detect_fg_threshold=0.5)
+        pnet, cnet = models_from_state_dicts(serve, trainer.state_dicts())
+        del trainer
+        det = Detector(serve, pnet, cnet, device="cuda")
+        counted = {"fused_block0": block0_kernel.KERNEL,
+                   "nms_keep_mask": nms_kernel.KERNEL,
+                   "roi_pool": roi_pool_kernel.KERNEL}
+        for k in counted.values():
+            k.launches = 0
+        record = _Recorder(BatchIterator(serve, str(manifest), seed=0))
+        t_run = time.perf_counter()
+        res = evaluate_map(serve, det, record,
+                           max_images=DATA_FRAMES["val"],
+                           with_proposal_recall=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) * 1e3
+        launches = {k: v.launches for k, v in counted.items()}
+        if not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"data evaluate: launches {launches}")
+        if res["num_images"] != DATA_FRAMES["val"]:
+            raise AssertionError(f"data evaluate: {res['num_images']} "
+                                 f"images scored")
+        for k, n in launches.items():
+            kernels[k]["launches_data"] = (kernels[k].get("launches_data", 0)
+                                           + n)
+        log("data", f"evaluate_map (bf16 serving, detect_fg_threshold 0.5) "
+            f"over {res['num_images']} validation files: "
+            f"{json.dumps(res)}; launches {launches}; {wall:.1f} ms wall, "
+            f"decode included", t)
+
+        t = time.perf_counter()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = serve.replace(compute_dtype="float32")
+        got = [collect_detections(
+            Detector(c, pnet, cnet, device="cuda"), _Replay(record.batches),
+            DATA_FRAMES["val"], with_proposals=True)
+            for c in (f32, f32.replace(pallas_mode="off"))]
+        (dk, gk, nk, pk), (dp, gp, np_, pp) = got
+        _match_detections(dk, dp, 1e-3)
+        if (gk, nk) != (gp, np_):
+            raise AssertionError("data f32: ground truth or image count "
+                                 "differs")
+        # the stage-1 survivors too: after 6 steps there may be no
+        # detection to compare
+        _match_detections(*(
+            [{"image": i, "class": 0, "score": 0.0, "box": b}
+             for i, bs in sorted(p.items()) for b in bs]
+            for p in (pk, pp)), 1e-3, "proposals")
+        log("data", f"float32 collect_detections over the same {nk} "
+            f"validation images: kernels == plain versions ({len(dk)} "
+            f"detections, classes equal, boxes and scores within 1e-3; "
+            f"{sum(map(len, pk.values()))} proposals within 1e-3)", t)
+    logging.getLogger("frcnn_tpu_torch.data").removeHandler(capture)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     name, smi = phase_env()
@@ -2118,7 +2472,8 @@ def main() -> int:
     phase_detect_large(kernels)
     phase_detect_int8(kernels)
     kernels.update(phase_train_kernels())
-    phase_train(kernels)
+    steps_ms = phase_train(kernels)
+    phase_data(kernels, steps_ms["kernel"])
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
 
     line = []
@@ -2132,7 +2487,8 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "device_ms": r.get("device_ms")})
-        for extra in ("device_ms_train_step", "device_ms_large"):
+        for extra in ("device_ms_train_step", "device_ms_large",
+                      "launches_data"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

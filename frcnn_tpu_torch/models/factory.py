@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -98,4 +98,17 @@ def init_models(cfg: Config, generator: torch.Generator,
         elif isinstance(m, MaskedBatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+    return pnet, cnet
+
+
+def models_from_state_dicts(cfg: Config, state_dicts: Dict[str, Dict]):
+    """pnet and cnet of ``cfg`` (eval mode, float32, on the CPU) with
+    ``state_dicts`` loaded: ``{'pnet': ..., 'cnet': ...}``, as
+    ``Trainer.state_dicts()`` gives them, so that a ``Detector`` serves a
+    trainer's weights without a file."""
+    pnet, cnet = create_models(cfg)
+    pnet.load_state_dict({k: v.detach().cpu()
+                          for k, v in state_dicts["pnet"].items()})
+    cnet.load_state_dict({k: v.detach().cpu()
+                          for k, v in state_dicts["cnet"].items()})
     return pnet, cnet

@@ -1,17 +1,24 @@
-"""Metrics logging and step timing (the JAX package's ``utils/metrics.py``).
+"""Metrics logging, step timing and profiling (the JAX package's
+``utils/metrics.py``).
 
 * :class:`MetricsLogger` — a JSONL stream of per-step scalars (the four
   loss series, counts, wall time) for tooling;
 * :class:`StepTimer` — wall clock per step with an exponential moving
   average (the ``torch.Timer`` the reference allocates but never reports,
-  ``main.lua:132,137``).
+  ``main.lua:132,137``);
+* :func:`profiler_trace` — ``torch.profiler`` around a block, written as a
+  Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from typing import Dict, Optional
+
+import torch
 
 
 class MetricsLogger:
@@ -48,3 +55,22 @@ class StepTimer:
         self.ema = dt if self.ema is None else (
             (1 - self.alpha) * self.ema + self.alpha * dt)
         return dt
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """``torch.profiler`` (CPU, and CUDA where there is a card) around a
+    block, written to ``<log_dir>/trace.json`` as a Chrome trace (view in
+    Perfetto or chrome://tracing); a no-op when ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -53,7 +53,10 @@ def test_port_imports_with_the_jax_side_blocked():
             "frcnn_tpu_torch.utils.serialization, "
             "frcnn_tpu_torch.utils.weights, "
             "frcnn_tpu_torch.models.quant, frcnn_tpu_torch.ops.int8_conv, "
-            "frcnn_tpu_torch.train.trainer; print('ok')")
+            "frcnn_tpu_torch.train.trainer, "
+            "frcnn_tpu_torch.data.pipeline, frcnn_tpu_torch.data.importers, "
+            "frcnn_tpu_torch.detect.evaluation, "
+            "frcnn_tpu_torch.utils.drawing; print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
