@@ -103,11 +103,37 @@ Phases, each printing one flushed line with its seconds:
            the validation files (the result, the block0, NMS and ROI-pool
            launches, the wall time); float32 collect_detections through the
            kernels against the plain versions on the same batches
+  train-large  vgg_large training at full width (imagenet config, 201
+           classes, bf16, float32 masters, RMSprop, kernels on), B=8, one
+           Trainer taking 480x1000 and 1000x480 batches: a float32 step
+           through the kernels against one through the plain versions and
+           remat on against off, both buckets, at the [train] tolerances;
+           bf16 ms/step, the launches per step of the ROI-pool forward and
+           backward and the pool backward (1, 1, 4) and their device time
+           per step (torch.profiler), each bucket; the peak memory of a
+           step with and without remat (torch.cuda.max_memory_allocated)
+  train-large-profile  device time of a vgg_large bf16 step by kernel
+           group and the busy share
+  cli      ``python -m frcnn_tpu_torch --device cuda`` in this process on the
+           data phase's PNG files with a config JSON that turns the kernels
+           on: import-duplo, train (4 steps, snapshots at 2 and 4, metrics,
+           plots where matplotlib is installed), evaluate --serving fast,
+           demo --count 2, export-t7-model then import-t7-model (weights
+           back bitwise); each subcommand's wall time and the launches of
+           every kernel it ran
+  parallel a world-size-1 NCCL process group: a data-parallel float32 step
+           (sums, counts, gradients and the skip vote through NCCL
+           all-reduces) against ``Trainer``'s step at the [train]
+           tolerances, and a one-replica ShardedDetector against the
+           Detector
 
 then one JSON line of per-kernel numbers (with ``device_ms``, the device
 time per path call where it was measured, NMS's ``device_ms_large`` per
-vgg_large 480x1000 detect, and ``launches_data``, the launches of the data
-phase's training and evaluation), the card's name and power limit,
+vgg_large 480x1000 detect, ``launches_data``, the launches of the data
+phase's training and evaluation, and for the ROI-pool forward and backward
+and the pool backward ``launches_train_large`` and
+``device_ms_train_large``, per vgg_large train step and bucket, and
+``launches_cli`` by subcommand), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -120,11 +146,14 @@ import contextlib
 import dataclasses
 import faulthandler
 import importlib
+import importlib.util
+import io
 import json
 import logging
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2000,48 +2029,56 @@ def _train_config(compute: str):
                                    images_per_step=B))
 
 
-def _train_batch(cfg, seed: int):
-    """A TrainBatch on the card: the seeded uint8 frames (unwired by the
-    objective), their six shaded rectangles as gt boxes and classes."""
+def _train_batch(cfg, seed: int, hw=IMAGE_HW):
+    """A TrainBatch on the card: the seeded uint8 frames of bucket ``hw``
+    (unwired by the objective), their six shaded rectangles as gt boxes
+    and classes."""
     from frcnn_tpu_torch.train.objective import TrainBatch
 
-    frames, boxes, classes = _frames(seed, B)
+    frames, boxes, classes = _frames(seed, B, hw)
     G = cfg.shapes.max_gt
     gt = np.zeros((B, G, 4), np.float32)
     gc = np.zeros((B, G), np.int32)
     gm = np.zeros((B, G), bool)
     gt[:, :6], gc[:, :6], gm[:, :6] = boxes, classes, True
-    hw = np.tile(np.asarray([IMAGE_HW], np.int32), (B, 1))
-    return TrainBatch(frames, hw, gt, gc, gm, np.zeros(B, bool)).to("cuda")
+    true_hw = np.tile(np.asarray([hw], np.int32), (B, 1))
+    return TrainBatch(frames, true_hw, gt, gc, gm,
+                      np.zeros(B, bool)).to("cuda")
 
 
-def _check_f32_step(batch):
-    """One float32 step through the kernels against one through the plain
-    versions: same parameters, batch and generator seed, so the labels and
-    dropout masks are the same draws."""
+def _step_grads(cfg, batches, pool_vjp: str):
+    """``[(new batch stats, metrics, gradients)]``, one per batch of
+    ``batches``, from one fresh Trainer of ``cfg`` (seed 0) that takes
+    them in order: trainers of other configs given the same batches draw
+    the same labels and masks."""
     from frcnn_tpu_torch.train.trainer import Trainer
 
-    t = time.perf_counter()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _train_config("float32")
-    runs = {}
-    for mode, vjp in (("on", "kernel"), ("off", "library")):
-        tr = Trainer(cfg.replace(pallas_mode=mode), device="cuda", seed=0,
-                     pool_vjp=vjp)
-        total, (bs, metrics), grads = tr.compute_gradients(batch)
-        torch.cuda.synchronize()
-        runs[mode] = (total, bs, metrics, grads)
-        del tr
-    (_, bs_k, m_k, g_k), (_, bs_p, m_p, g_p) = runs["on"], runs["off"]
+    tr = Trainer(cfg, device="cuda", seed=0, pool_vjp=pool_vjp)
+    out = []
+    for b in batches:
+        _, (bs, metrics), grads = tr.compute_gradients(b)
+        out.append((bs, metrics, grads))
+    torch.cuda.synchronize()
+    del tr
+    return out
+
+
+def _assert_steps_close(phase: str, what: str, a, b):
+    """Step ``a`` against step ``b`` (:func:`_step_grads`): losses and
+    counts rtol 1e-5, batch-norm statistics rtol 1e-5, every gradient
+    within 1e-4 of its tensor's largest magnitude. Returns (the largest
+    relative gradient error, its tensor)."""
+    (bs_k, m_k, g_k), (bs_p, m_p, g_p) = a, b
     for k in ("pcls", "preg", "dcls", "dreg", "cls_count", "reg_count"):
-        torch.testing.assert_close(m_k[k], m_p[k], rtol=1e-5, atol=0)
+        torch.testing.assert_close(m_k[k], m_p[k], rtol=1e-5, atol=0,
+                                   msg=lambda m, k=k: f"{what}: {k}: {m}")
     worst, worst_name = 0.0, next(iter(g_p))
     for name in g_p:
-        a, b = g_k[name], g_p[name]
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise AssertionError(f"train f32: non-finite gradient {name}")
-        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        x, y = g_k[name], g_p[name]
+        if not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+            raise AssertionError(f"{phase} {what}: non-finite gradient "
+                                 f"{name}")
+        rel = float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
         if rel > worst:
             worst, worst_name = rel, name
     for name in bs_p:
@@ -2052,14 +2089,34 @@ def _check_f32_step(batch):
     # themselves route bitwise
     limit = 1e-4
     if worst > limit:
-        raise AssertionError(f"train f32: gradient {worst_name} relative "
-                             f"error {worst:.3g} over the {limit} limit")
+        raise AssertionError(f"{phase} {what}: gradient {worst_name} "
+                             f"relative error {worst:.3g} over the {limit} "
+                             f"limit")
+    return worst, worst_name
+
+
+def _f32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _check_f32_step(batch):
+    """One float32 step through the kernels against one through the plain
+    versions: same parameters, batch and generator seed, so the labels and
+    dropout masks are the same draws."""
+    t = time.perf_counter()
+    _f32()
+    cfg = _train_config("float32")
+    (ker,) = _step_grads(cfg, [batch], "kernel")
+    (ref,) = _step_grads(cfg.replace(pallas_mode="off"), [batch], "library")
+    worst, worst_name = _assert_steps_close("train", "float32", ker, ref)
+    m_k = ker[1]
     losses = ", ".join(f"{k} {float(m_k[k]):.6g}"
                        for k in ("pcls", "preg", "dcls", "dreg"))
     log("train", f"float32 B={B}: kernels == plain versions: losses "
-        f"{losses} (rtol 1e-5), cls_count {float(m_k['cls_count']):.0f}, reg_count "
-        f"{float(m_k['reg_count']):.0f}; largest relative gradient error "
-        f"{worst:.3g} ({worst_name}; limit {limit})", t)
+        f"{losses} (rtol 1e-5), cls_count {float(m_k['cls_count']):.0f}, "
+        f"reg_count {float(m_k['reg_count']):.0f}; largest relative gradient "
+        f"error {worst:.3g} ({worst_name}; limit 1e-4)", t)
 
 
 def phase_train(kernels):
@@ -2123,6 +2180,186 @@ def phase_train(kernels):
     profile_run("train-profile", f"bf16 train step B={B}, pool backward "
                 f"kernel", lambda: trainer.run_step(batch), "step")
     return steps_ms
+
+
+# -- vgg_large training --------------------------------------------------------
+
+LARGE_TRAIN_STEPS = 3
+# rows 2, 4 and 5 in a train step's trace: (name test, launches per step)
+TRAIN_DEVICE = {
+    "roi_pool": (lambda n: "roi_pool_kernel" in n, 1),
+    "roi_pool_bwd": (lambda n: "roi_pool_bwd" in n, 2),   # both passes
+    "pool_bwd": (lambda n: "pool_bwd_kernel" in n and "roi_pool" not in n,
+                 4),
+}
+
+
+def _large_train_config(compute: str, remat: bool = False):
+    from frcnn_tpu_torch.config import imagenet_config
+
+    cfg = imagenet_config(pallas_mode="on", compute_dtype=compute,
+                          remat=remat)
+    assert cfg.shapes.images_per_step == B
+    return cfg
+
+
+def train_device_ms(fn, n_calls: int = 2):
+    """Device ms per step of rows 2, 4 and 5 (:data:`TRAIN_DEVICE`) over
+    ``n_calls`` steps ``fn()`` under torch.profiler: the mean per launch
+    seen times the launches per step; None where none was seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(TRAIN_DEVICE, 0.0)
+    seen = dict.fromkeys(TRAIN_DEVICE, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, (match, _) in TRAIN_DEVICE.items():
+            if match(e.name):
+                us[k] += e.time_range.elapsed_us()
+                seen[k] += 1
+    return {k: (us[k] / seen[k] / 1e3 * TRAIN_DEVICE[k][1] if seen[k]
+                else None) for k in TRAIN_DEVICE}
+
+
+def _peak_step_mib(trainer, batch):
+    """(peak MiB allocated during one step, MiB allocated before it)."""
+    trainer.run_step(batch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run_step(batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20, before / 2**20
+
+
+def _check_f32_large(batches):
+    """vgg_large float32 at full width, both buckets: one step through the
+    kernels against one through the plain versions, and with remat against
+    without, at the [train] tolerances."""
+    t = time.perf_counter()
+    _f32()
+    cfg = _large_train_config("float32")
+    ker = _step_grads(cfg, batches, "kernel")
+    ref = _step_grads(cfg.replace(pallas_mode="off"), batches, "library")
+    rem = _step_grads(cfg.replace(remat=True), batches, "kernel")
+    for b, a, r, m in zip(batches, ker, ref, rem):
+        hw = tuple(b.image.shape[1:3])
+        worst, name = _assert_steps_close("train-large", f"float32 {hw}",
+                                          a, r)
+        worst_r, name_r = _assert_steps_close(
+            "train-large", f"float32 remat {hw}", m, a)
+        losses = ", ".join(f"{k} {float(a[1][k]):.6g}"
+                           for k in ("pcls", "preg", "dcls", "dreg"))
+        print(f"[train-large] float32 B={B} {hw[0]}x{hw[1]}: kernels == "
+              f"plain versions: losses {losses} (rtol 1e-5), cls_count "
+              f"{float(a[1]['cls_count']):.0f}, reg_count "
+              f"{float(a[1]['reg_count']):.0f}; largest relative gradient "
+              f"error {worst:.3g} ({name}; limit 1e-4); remat on == off: "
+              f"losses rtol 1e-5, largest relative gradient error "
+              f"{worst_r:.3g} ({name_r})", flush=True)
+    del ker, ref, rem
+    torch.cuda.empty_cache()
+    log("train-large", "float32 checks done", t)
+
+
+def phase_train_large(kernels):
+    """vgg_large training at full width (imagenet config, 201 classes,
+    bf16 compute, float32 masters, RMSprop, kernels on), B=8, both
+    buckets through one Trainer."""
+    from frcnn_tpu_torch.ops import pool_bwd_kernel, roi_pool_kernel
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    counted = {"roi_pool": roi_pool_kernel.KERNEL,
+               "roi_pool_bwd": roi_pool_kernel.BWD_KERNEL,
+               "pool_bwd": pool_bwd_kernel.KERNEL}
+    batches = [_train_batch(_large_train_config("float32"), 40 + i, hw)
+               for i, hw in enumerate(LARGE_HW)]
+    _check_f32_large(batches)
+
+    t = time.perf_counter()
+    cfg = _large_train_config("bfloat16")
+    trainer = Trainer(cfg, device="cuda", seed=0)
+    peak = {}
+    for b in batches:          # the first step of each bucket: warm-up
+        peak[(tuple(b.image.shape[1:3]), False)] = _peak_step_mib(trainer, b)
+    for k in counted:
+        kernels[k]["launches_train_large"] = {}
+        kernels[k]["device_ms_train_large"] = {}
+    step_ms = {}
+    for b in batches:
+        hw = tuple(b.image.shape[1:3])
+        torch.cuda.synchronize()
+        for k in counted.values():
+            k.launches = 0
+        t_run = time.perf_counter()
+        ms = [trainer.run_step(b) for _ in range(LARGE_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_run) / LARGE_TRAIN_STEPS
+        step_ms[(hw, False)] = wall * 1e3
+        launches = {k: v.launches for k, v in counted.items()}
+        for m in ms:
+            if m["skipped"] != 0 or not all(
+                    np.isfinite(m[k]) for k in ("pcls", "preg", "dcls",
+                                                "dreg")):
+                raise AssertionError(f"train-large bf16 {hw}: skipped or "
+                                     f"non-finite step {m}")
+        want = {"roi_pool": LARGE_TRAIN_STEPS,
+                "roi_pool_bwd": LARGE_TRAIN_STEPS,
+                "pool_bwd": 4 * LARGE_TRAIN_STEPS}
+        if launches != want:
+            raise AssertionError(f"train-large bf16 {hw}: launches "
+                                 f"{launches}, expected {want}")
+        dev = train_device_ms(lambda: trainer.run_step(b))
+        key = f"{hw[0]}x{hw[1]}"
+        for k in counted:
+            kernels[k]["launches_train_large"][key] = (launches[k]
+                                                       / LARGE_TRAIN_STEPS)
+            kernels[k]["device_ms_train_large"][key] = dev[k]
+        last = ms[-1]
+        print(f"[train-large] bf16 B={B} {hw[0]}x{hw[1]}: {wall * 1e3:.2f} "
+              f"ms/step, {B / wall:.1f} img/s over {LARGE_TRAIN_STEPS} steps "
+              f"(after 2); launches per step "
+              f"{({k: v / LARGE_TRAIN_STEPS for k, v in launches.items()})}; "
+              f"device time per step (torch.profiler): {_device_text(dev)}; "
+              f"last step pcls {last['pcls']:.4f} preg {last['preg']:.4f} "
+              f"dcls {last['dcls']:.4f} dreg {last['dreg']:.4f}, cls_count "
+              f"{last['cls_count']:.0f}, reg_count {last['reg_count']:.0f}, "
+              f"skipped 0 in every step", flush=True)
+    profile_run("train-large-profile", f"vgg_large bf16 train step B={B} "
+                f"{LARGE_HW[0][0]}x{LARGE_HW[0][1]}",
+                lambda: trainer.run_step(batches[0]), "step", n_calls=2)
+    del trainer
+    torch.cuda.empty_cache()
+    remat = Trainer(_large_train_config("bfloat16", remat=True),
+                    device="cuda", seed=0)
+    for b in batches:
+        hw = tuple(b.image.shape[1:3])
+        peak[(hw, True)] = _peak_step_mib(remat, b)
+        t_run = time.perf_counter()
+        for _ in range(LARGE_TRAIN_STEPS):
+            remat.run_step(b)
+        torch.cuda.synchronize()
+        step_ms[(hw, True)] = ((time.perf_counter() - t_run)
+                               / LARGE_TRAIN_STEPS * 1e3)
+    del remat
+    torch.cuda.empty_cache()
+    text = "; ".join(
+        f"{hw[0]}x{hw[1]} remat {'on' if r else 'off'} {p:.0f} MiB "
+        f"({p - before:.0f} above the {before:.0f} held before the step), "
+        f"{step_ms[(hw, r)]:.2f} ms/step"
+        for (hw, r), (p, before) in sorted(peak.items()))
+    log("train-large", f"peak memory of a bf16 step "
+        f"(torch.cuda.max_memory_allocated) and ms/step over "
+        f"{LARGE_TRAIN_STEPS} steps: {text}", t)
 
 
 # -- data -----------------------------------------------------------------------
@@ -2297,12 +2534,11 @@ def _match_detections(a, b, tol: float, what: str = "detections"):
                                  f"{tol}")
 
 
-def phase_data(kernels, fixed_ms_step: float):
+def phase_data(kernels, fixed_ms_step: float, root: Path) -> Path:
     """Train from image files and evaluate mAP: the host pipeline
     (decode, resize, batch) into the Trainer, its weights into the serving
-    Detector, ``evaluate_map`` over the validation files."""
-    import tempfile
-
+    Detector, ``evaluate_map`` over the validation files. The dataset is
+    written under ``root``; returns its manifest's path."""
     from frcnn_tpu_torch.config import serving_config
     from frcnn_tpu_torch.data import codec, native
     from frcnn_tpu_torch.data.pipeline import BatchIterator, PrefetchingIterator
@@ -2322,144 +2558,332 @@ def phase_data(kernels, fixed_ms_step: float):
 
     capture = _LogCapture()
     logging.getLogger("frcnn_tpu_torch.data").addHandler(capture)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t = time.perf_counter()
-        manifest = _write_dataset(root)
-        log("data", f"{DATA_FRAMES} frames of {DATA_HW[1]}x{DATA_HW[0]} "
-            f"written as PNG, one corrupt PNG ({CORRUPT}) listed for "
-            f"training, duplo CSV -> manifest", t)
-        t = time.perf_counter()
-        lib = native.available()
-        why = "built" if lib else "not available: " + " | ".join(
-            ln for ln in native.build_error().splitlines() if "error" in ln)
-        log("data", f"native host library {why}; frames decode through "
-            f"the {codec.decoder()}", t)
-        cfg = _train_config("bfloat16").replace(
-            examples_base_path=str(root), background_base_path=str(root / "bg"))
-        t = time.perf_counter()
-        if lib:
-            _compare_iterators(cfg, manifest, t)
-        else:
-            log("data", "native vs Python batches: not run, the native "
-                "library did not build", t)
+    t = time.perf_counter()
+    manifest = _write_dataset(root)
+    log("data", f"{DATA_FRAMES} frames of {DATA_HW[1]}x{DATA_HW[0]} "
+        f"written as PNG, one corrupt PNG ({CORRUPT}) listed for "
+        f"training, duplo CSV -> manifest", t)
+    t = time.perf_counter()
+    lib = native.available()
+    why = "built" if lib else "not available: " + " | ".join(
+        ln for ln in native.build_error().splitlines() if "error" in ln)
+    log("data", f"native host library {why}; frames decode through "
+        f"the {codec.decoder()}", t)
+    cfg = _train_config("bfloat16").replace(
+        examples_base_path=str(root), background_base_path=str(root / "bg"))
+    t = time.perf_counter()
+    if lib:
+        _compare_iterators(cfg, manifest, t)
+    else:
+        log("data", "native vs Python batches: not run, the native "
+            "library did not build", t)
 
-        t = time.perf_counter()
-        bare = BatchIterator(cfg, str(manifest), seed=1)
-        bare_ms = _host_ms(bare, HOST_BATCHES)
-        pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=1))
-        try:
-            pre_ms = _host_ms(pre, 3)
-        finally:
-            pre.close()
-        skipped = [m for m in capture.messages if CORRUPT in m]
-        if not skipped:
-            raise AssertionError(f"data: {CORRUPT} was not skipped and "
-                                 f"logged in {HOST_BATCHES} batches")
-        split = _host_split(cfg, root / bare.training.items[0])
-        log("data", f"host batches of {B} at {IMAGE_HW[0]}x{IMAGE_HW[1]} "
-            f"({'native' if bare.use_native else 'Python'} path): "
-            f"{bare_ms:.1f} ms/batch bare over {HOST_BATCHES}, "
-            f"{pre_ms:.1f} ms/batch through PrefetchingIterator(depth=2) "
-            f"over 3 with nothing else running; per frame {split}; "
-            f"{CORRUPT} skipped and logged: {skipped[0]!r}", t)
+    t = time.perf_counter()
+    bare = BatchIterator(cfg, str(manifest), seed=1)
+    bare_ms = _host_ms(bare, HOST_BATCHES)
+    pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=1))
+    try:
+        pre_ms = _host_ms(pre, 3)
+    finally:
+        pre.close()
+    skipped = [m for m in capture.messages if CORRUPT in m]
+    if not skipped:
+        raise AssertionError(f"data: {CORRUPT} was not skipped and "
+                             f"logged in {HOST_BATCHES} batches")
+    split = _host_split(cfg, root / bare.training.items[0])
+    log("data", f"host batches of {B} at {IMAGE_HW[0]}x{IMAGE_HW[1]} "
+        f"({'native' if bare.use_native else 'Python'} path): "
+        f"{bare_ms:.1f} ms/batch bare over {HOST_BATCHES}, "
+        f"{pre_ms:.1f} ms/batch through PrefetchingIterator(depth=2) "
+        f"over 3 with nothing else running; per frame {split}; "
+        f"{CORRUPT} skipped and logged: {skipped[0]!r}", t)
 
-        # train from the files: the slice's main path, counts read around it
-        t = time.perf_counter()
-        counted = {"roi_pool": roi_pool_kernel.KERNEL,
-                   "roi_pool_bwd": roi_pool_kernel.BWD_KERNEL,
-                   "pool_bwd": pool_bwd_kernel.KERNEL}
-        trainer = Trainer(cfg, device="cuda", seed=0)
-        pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=2))
-        for k in counted.values():
-            k.launches = 0
-        try:
-            ms, times = [], []
-            for _ in range(DATA_STEPS):
-                t_step = time.perf_counter()
-                ms.append(trainer.run_step(pre.next_training_batch()))
-                times.append(time.perf_counter() - t_step)
-        finally:
-            pre.close()
-        launches = {k: v.launches for k, v in counted.items()}
-        for m in ms:
-            if m["skipped"] != 0 or not all(
-                    np.isfinite(m[k]) for k in ("pcls", "preg", "dcls",
-                                                "dreg")):
-                raise AssertionError(f"data train: skipped or non-finite "
-                                     f"step {m}")
-        if not all(n > 0 for n in launches.values()):
-            raise AssertionError(f"data train: launches {launches}")
-        for k, n in launches.items():
-            kernels[k]["launches_data"] = n
-        step_ms = statistics.mean(times[1:]) * 1e3
-        snap = root / "smoke.ckpt"
-        trainer.save_snapshot(str(snap))
-        losses = ", ".join(f"{k} {ms[-1][k]:.4f}"
-                           for k in ("pcls", "preg", "dcls", "dreg"))
-        log("data", f"bf16 train from files, B={B}: {DATA_STEPS} steps, "
-            f"every loss finite, none skipped (last: {losses}); "
-            f"{step_ms:.1f} ms/step wall over steps 2-{DATA_STEPS} "
-            f"(first {times[0] * 1e3:.1f} ms) against {fixed_ms_step:.1f} "
-            f"ms/step on the [train] phase's fixed batch; launches "
-            f"{launches}; snapshot {snap.stat().st_size} bytes", t)
+    # train from the files: the slice's main path, counts read around it
+    t = time.perf_counter()
+    counted = {"roi_pool": roi_pool_kernel.KERNEL,
+               "roi_pool_bwd": roi_pool_kernel.BWD_KERNEL,
+               "pool_bwd": pool_bwd_kernel.KERNEL}
+    trainer = Trainer(cfg, device="cuda", seed=0)
+    pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=2))
+    for k in counted.values():
+        k.launches = 0
+    try:
+        ms, times = [], []
+        for _ in range(DATA_STEPS):
+            t_step = time.perf_counter()
+            ms.append(trainer.run_step(pre.next_training_batch()))
+            times.append(time.perf_counter() - t_step)
+    finally:
+        pre.close()
+    launches = {k: v.launches for k, v in counted.items()}
+    for m in ms:
+        if m["skipped"] != 0 or not all(
+                np.isfinite(m[k]) for k in ("pcls", "preg", "dcls",
+                                            "dreg")):
+            raise AssertionError(f"data train: skipped or non-finite "
+                                 f"step {m}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"data train: launches {launches}")
+    for k, n in launches.items():
+        kernels[k]["launches_data"] = n
+    step_ms = statistics.mean(times[1:]) * 1e3
+    snap = root / "smoke.ckpt"
+    trainer.save_snapshot(str(snap))
+    losses = ", ".join(f"{k} {ms[-1][k]:.4f}"
+                       for k in ("pcls", "preg", "dcls", "dreg"))
+    log("data", f"bf16 train from files, B={B}: {DATA_STEPS} steps, "
+        f"every loss finite, none skipped (last: {losses}); "
+        f"{step_ms:.1f} ms/step wall over steps 2-{DATA_STEPS} "
+        f"(first {times[0] * 1e3:.1f} ms) against {fixed_ms_step:.1f} "
+        f"ms/step on the [train] phase's fixed batch; launches "
+        f"{launches}; snapshot {snap.stat().st_size} bytes", t)
 
-        # evaluate: the trainer's weights in the serving Detector
-        t = time.perf_counter()
-        serve = serving_config(cfg).replace(detect_fg_threshold=0.5)
-        pnet, cnet = models_from_state_dicts(serve, trainer.state_dicts())
-        del trainer
-        det = Detector(serve, pnet, cnet, device="cuda")
-        counted = {"fused_block0": block0_kernel.KERNEL,
-                   "nms_keep_mask": nms_kernel.KERNEL,
-                   "roi_pool": roi_pool_kernel.KERNEL}
-        for k in counted.values():
-            k.launches = 0
-        record = _Recorder(BatchIterator(serve, str(manifest), seed=0))
-        t_run = time.perf_counter()
-        res = evaluate_map(serve, det, record,
-                           max_images=DATA_FRAMES["val"],
-                           with_proposal_recall=True)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t_run) * 1e3
-        launches = {k: v.launches for k, v in counted.items()}
-        if not all(n > 0 for n in launches.values()):
-            raise AssertionError(f"data evaluate: launches {launches}")
-        if res["num_images"] != DATA_FRAMES["val"]:
-            raise AssertionError(f"data evaluate: {res['num_images']} "
-                                 f"images scored")
-        for k, n in launches.items():
-            kernels[k]["launches_data"] = (kernels[k].get("launches_data", 0)
-                                           + n)
-        log("data", f"evaluate_map (bf16 serving, detect_fg_threshold 0.5) "
-            f"over {res['num_images']} validation files: "
-            f"{json.dumps(res)}; launches {launches}; {wall:.1f} ms wall, "
-            f"decode included", t)
+    # evaluate: the trainer's weights in the serving Detector
+    t = time.perf_counter()
+    serve = serving_config(cfg).replace(detect_fg_threshold=0.5)
+    pnet, cnet = models_from_state_dicts(serve, trainer.state_dicts())
+    del trainer
+    det = Detector(serve, pnet, cnet, device="cuda")
+    counted = {"fused_block0": block0_kernel.KERNEL,
+               "nms_keep_mask": nms_kernel.KERNEL,
+               "roi_pool": roi_pool_kernel.KERNEL}
+    for k in counted.values():
+        k.launches = 0
+    record = _Recorder(BatchIterator(serve, str(manifest), seed=0))
+    t_run = time.perf_counter()
+    res = evaluate_map(serve, det, record,
+                       max_images=DATA_FRAMES["val"],
+                       with_proposal_recall=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_run) * 1e3
+    launches = {k: v.launches for k, v in counted.items()}
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"data evaluate: launches {launches}")
+    if res["num_images"] != DATA_FRAMES["val"]:
+        raise AssertionError(f"data evaluate: {res['num_images']} "
+                             f"images scored")
+    for k, n in launches.items():
+        kernels[k]["launches_data"] = (kernels[k].get("launches_data", 0)
+                                       + n)
+    log("data", f"evaluate_map (bf16 serving, detect_fg_threshold 0.5) "
+        f"over {res['num_images']} validation files: "
+        f"{json.dumps(res)}; launches {launches}; {wall:.1f} ms wall, "
+        f"decode included", t)
 
-        t = time.perf_counter()
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        f32 = serve.replace(compute_dtype="float32")
-        got = [collect_detections(
-            Detector(c, pnet, cnet, device="cuda"), _Replay(record.batches),
-            DATA_FRAMES["val"], with_proposals=True)
-            for c in (f32, f32.replace(pallas_mode="off"))]
-        (dk, gk, nk, pk), (dp, gp, np_, pp) = got
-        _match_detections(dk, dp, 1e-3)
-        if (gk, nk) != (gp, np_):
-            raise AssertionError("data f32: ground truth or image count "
-                                 "differs")
-        # the stage-1 survivors too: after 6 steps there may be no
-        # detection to compare
-        _match_detections(*(
-            [{"image": i, "class": 0, "score": 0.0, "box": b}
-             for i, bs in sorted(p.items()) for b in bs]
-            for p in (pk, pp)), 1e-3, "proposals")
-        log("data", f"float32 collect_detections over the same {nk} "
-            f"validation images: kernels == plain versions ({len(dk)} "
-            f"detections, classes equal, boxes and scores within 1e-3; "
-            f"{sum(map(len, pk.values()))} proposals within 1e-3)", t)
+    t = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = serve.replace(compute_dtype="float32")
+    got = [collect_detections(
+        Detector(c, pnet, cnet, device="cuda"), _Replay(record.batches),
+        DATA_FRAMES["val"], with_proposals=True)
+        for c in (f32, f32.replace(pallas_mode="off"))]
+    (dk, gk, nk, pk), (dp, gp, np_, pp) = got
+    _match_detections(dk, dp, 1e-3)
+    if (gk, nk) != (gp, np_):
+        raise AssertionError("data f32: ground truth or image count "
+                             "differs")
+    # the stage-1 survivors too: after 6 steps there may be no
+    # detection to compare
+    _match_detections(*(
+        [{"image": i, "class": 0, "score": 0.0, "box": b}
+         for i, bs in sorted(p.items()) for b in bs]
+        for p in (pk, pp)), 1e-3, "proposals")
+    log("data", f"float32 collect_detections over the same {nk} "
+        f"validation images: kernels == plain versions ({len(dk)} "
+        f"detections, classes equal, boxes and scores within 1e-3; "
+        f"{sum(map(len, pk.values()))} proposals within 1e-3)", t)
     logging.getLogger("frcnn_tpu_torch.data").removeHandler(capture)
+    return manifest
+
+
+# -- the CLI ------------------------------------------------------------------
+
+CLI_STEPS = 4
+
+
+def _cli(argv):
+    """One in-process run of the port's CLI on the card, with every
+    kernel's launch count set to 0 before it. Returns (wall s, standard
+    output, {kernel: launches} of the kernels it launched)."""
+    from frcnn_tpu_torch import cli
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
+    for k in REGISTRY.values():
+        k.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return wall, out.getvalue(), {n: k.launches for n, k in REGISTRY.items()
+                                  if k.launches}
+
+
+def phase_cli(kernels, root: Path):
+    """``python -m frcnn_tpu_torch`` with ``--device cuda`` on the data
+    phase's PNG files and a config JSON with ``pallas_mode: "on"``:
+    import-duplo, train, evaluate --serving fast, demo, and the t7 model
+    export/import cycle."""
+    from frcnn_tpu_torch.utils.serialization import load_checkpoint
+
+    t = time.perf_counter()
+    work = root / "cli"
+    work.mkdir()
+    # the plots need matplotlib, which the card's machine may lack
+    plot = 2 if importlib.util.find_spec("matplotlib") else 0
+    cfg = _train_config("bfloat16").replace(
+        examples_base_path=str(root), background_base_path=str(root / "bg"),
+        snapshot_interval=2, plot_interval=plot)
+    cfg_path = str(work / "cfg.json")
+    (work / "cfg.json").write_text(cfg.to_json())
+    man, name = str(work / "manifest.json"), str(work / "run")
+    ckpt = f"{name}_{CLI_STEPS:06d}.ckpt"
+    common = ["--cfg", cfg_path, "--train", man]
+    runs = (
+        ("import-duplo", ["import-duplo", "--csv", str(root / "boxes.csv"),
+                          "--background", str(root / "bg"), "--out", man,
+                          "--name", "smoke", "--val-size",
+                          str(DATA_FRAMES["val"])]),
+        ("train", ["train", *common, "--name", name, "--steps",
+                   str(CLI_STEPS), "--snapshot", "2"]),
+        ("evaluate", ["evaluate", *common, "--restore", ckpt, "--count",
+                      str(DATA_FRAMES["val"]), "--serving", "fast"]),
+        ("demo", ["demo", *common, "--restore", ckpt, "--out",
+                  str(work / "demo"), "--count", "2"]),
+        ("export-t7-model", ["export-t7-model", "--cfg", cfg_path,
+                             "--restore", ckpt, "--out",
+                             str(work / "run.t7")]),
+        ("import-t7-model", ["import-t7-model", "--cfg", cfg_path, "--t7",
+                             str(work / "run.t7"), "--out",
+                             str(work / "imported.ckpt")]),
+    )
+    launches_cli = {}
+    for what, argv in runs:
+        wall, out, launches = _cli(argv)
+        note = ""
+        if what == "train":
+            recs = (work / "run_metrics.jsonl").read_text().splitlines()
+            snaps = sorted(p.name for p in work.glob("run_*.ckpt"))
+            if len(recs) != CLI_STEPS or snaps != ["run_000002.ckpt",
+                                                   "run_000004.ckpt"]:
+                raise AssertionError(f"cli train: {len(recs)} metrics "
+                                     f"records, snapshots {snaps}")
+            want = {"roi_pool": CLI_STEPS, "roi_pool_bwd": CLI_STEPS,
+                    "pool_bwd": 4 * CLI_STEPS}
+            if launches != want:
+                raise AssertionError(f"cli train: launches {launches}, "
+                                     f"expected {want}")
+            last = json.loads(recs[-1])
+            note = (f"; {len(recs)} metrics records, snapshots {snaps}, "
+                    f"plot {'written' if plot else 'off (no matplotlib)'}; "
+                    f"last step loss {last['loss']:.4f}, skipped "
+                    f"{last['skipped']:.0f}")
+        elif what == "evaluate":
+            res = json.loads(out)
+            # dynamic scales: block 0 runs the float kernel, then the
+            # int8 chain quantizes its output
+            if res["num_images"] != DATA_FRAMES["val"] or not all(
+                    launches.get(k) for k in ("fused_block0",
+                                              "nms_keep_mask", "roi_pool")):
+                raise AssertionError(f"cli evaluate: {res['num_images']} "
+                                     f"images, launches {launches}")
+            note = f"; {json.dumps(res)}"
+        elif what == "demo":
+            pngs = sorted(p.name for p in (work / "demo").glob("*.png"))
+            if pngs != ["output1.png", "output2.png"] or not all(
+                    launches.get(k) for k in ("nms_keep_mask", "roi_pool")):
+                raise AssertionError(f"cli demo: {pngs}, launches "
+                                     f"{launches}")
+            note = f"; wrote {pngs}"
+        elif what == "import-t7-model":
+            a = load_checkpoint(ckpt)["params"]
+            b = load_checkpoint(str(work / "imported.ckpt"))["params"]
+            n = _assert_trees_equal(a, b)
+            note = f"; {n} weight arrays back bitwise"
+        launches_cli[what] = launches
+        print(f"[cli] {what}: {wall:.2f} s wall; launches {launches}{note}",
+              flush=True)
+    for what, launches in launches_cli.items():
+        for k, n in launches.items():
+            kernels[k].setdefault("launches_cli", {})[what] = n
+    log("cli", f"python -m frcnn_tpu_torch --device cuda: every subcommand "
+        f"ran on the card", t)
+
+
+def _assert_trees_equal(a, b) -> int:
+    """Nested dicts of numpy arrays equal bitwise; returns the array
+    count."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"keys differ: {sorted(a)} {sorted(b)}")
+        return sum(_assert_trees_equal(a[k], b[k]) for k in a)
+    if not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise AssertionError("cli t7 cycle: weights differ")
+    return 1
+
+
+# -- data parallelism ----------------------------------------------------------
+
+def phase_parallel():
+    """A world-size-1 NCCL group on the card: one data-parallel step (its
+    sums, counts, gradients and skip vote through NCCL all-reduces) against
+    ``Trainer.run_step``, float32, at the [train] tolerances; then a
+    ShardedDetector of one replica against the Detector."""
+    import torch.distributed as dist
+
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.parallel.mesh import batch_shard, free_port
+    from frcnn_tpu_torch.parallel.serving import ShardedDetector
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    t = time.perf_counter()
+    _f32()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        cfg = _train_config("float32")
+        batch = _train_batch(cfg, 2, IMAGE_HW)
+        one = Trainer(cfg, device="cuda", seed=0)
+        dp = Trainer(cfg, device="cuda", seed=0, shard=batch_shard())
+        a = one.compute_gradients(batch)
+        d = dp.compute_gradients(batch)
+        worst, name = _assert_steps_close(
+            "parallel", "data-parallel step", (d[1][0], d[1][1], d[2]),
+            (a[1][0], a[1][1], a[2]))
+        one.apply_gradients(a[2], a[1][0])
+        dp.apply_gradients(d[2], d[1][0])
+        moved = max(float((dp.params[k] - one.params[k]).abs().max())
+                    for k in one.params)
+        log("parallel", f"NCCL world size 1, float32 B={B} "
+            f"{IMAGE_HW[0]}x{IMAGE_HW[1]}: data-parallel step == "
+            f"Trainer step: losses rtol 1e-5, largest relative gradient "
+            f"error {worst:.3g} ({name}; limit 1e-4); updated parameters "
+            f"at most {moved:.3g} apart", t)
+        del one, dp, a, d
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        scfg, pnet, cnet = _load_models("parallel")
+        frames, _, _ = _frames(1, B, IMAGE_HW)
+        hw = np.tile(np.asarray([IMAGE_HW], np.int32), (B, 1))
+        want = Detector(scfg, pnet, cnet, device="cuda").detect(frames, hw)
+        got = ShardedDetector(scfg, pnet, cnet,
+                              devices=["cuda"]).detect(frames, hw)
+        for f in ("valid", "classes", "proposals_valid"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"parallel: ShardedDetector {f} "
+                                     f"differs")
+        for f, tol in (("boxes", 1e-3), ("proposals", 1e-3),
+                       ("confidence", 1e-5), ("fg_score", 1e-5)):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=0, atol=tol)
+        log("parallel", f"ShardedDetector (1 replica, cuda) == Detector on "
+            f"a bf16 serving batch of {B}: {int(want.valid.sum())} "
+            f"detections, valid/classes equal, boxes within 1e-3", t)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -2473,7 +2897,11 @@ def main() -> int:
     phase_detect_int8(kernels)
     kernels.update(phase_train_kernels())
     steps_ms = phase_train(kernels)
-    phase_data(kernels, steps_ms["kernel"])
+    phase_train_large(kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_data(kernels, steps_ms["kernel"], Path(tmp))
+        phase_cli(kernels, Path(tmp))
+    phase_parallel()
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
 
     line = []
@@ -2488,7 +2916,8 @@ def main() -> int:
                      "library_ms": r["library_ms"],
                      "device_ms": r.get("device_ms")})
         for extra in ("device_ms_train_step", "device_ms_large",
-                      "launches_data"):
+                      "launches_data", "launches_train_large",
+                      "device_ms_train_large", "launches_cli"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

@@ -262,10 +262,13 @@ class BatchIterator:
 
     def __init__(self, cfg: Config, manifest, seed: Optional[int] = None,
                  use_native: Optional[bool] = None,
-                 shard_index: int = 0, num_shards: int = 1):
+                 shard_index: int = 0, num_shards: int = 1,
+                 num_threads: int = 0):
         """``shard_index``/``num_shards``: multi-host input sharding — each
         process iterates a disjoint stride of the training list (DCN-side
-        data split; the device mesh handles the ICI-side DP)."""
+        data split; the device mesh handles the ICI-side DP).
+        ``num_threads``: the native library's decode threads per batch (0:
+        one per image, up to the CPU count)."""
         if isinstance(manifest, str):
             manifest = load_manifest(manifest)
         self.cfg = cfg
@@ -297,6 +300,7 @@ class BatchIterator:
         else:
             self.use_native = use_native and native_ok and _native.available()
         self._native = _native
+        self.num_threads = num_threads
 
     # -- per-image processing -------------------------------------------------
 
@@ -486,7 +490,7 @@ class BatchIterator:
                 out = self._native.load_process_batch(
                     [paths[i] for i in idxs], bucket,
                     cfg.target_smaller_side, cfg.max_pixel_size,
-                    space, flips=flips[idxs],
+                    space, flips=flips[idxs], num_threads=self.num_threads,
                 )
                 canvases, out_hw, status = out
                 for gi, i in enumerate(idxs):

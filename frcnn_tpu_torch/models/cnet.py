@@ -12,12 +12,18 @@ PReLU parameters are left uninitialised (``skip_init``).
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from frcnn_tpu_torch.config import ModelConfig
-from frcnn_tpu_torch.models.layers import MaskedBatchNorm, dropout, prelu
+from frcnn_tpu_torch.models.layers import (
+    MaskedBatchNorm,
+    apply_dropout,
+    keep_mask,
+    prelu,
+)
 
 
 class ClassificationNet(nn.Module):
@@ -35,15 +41,26 @@ class ClassificationNet(nn.Module):
         self.reg_head = skip_init(nn.Linear, n, 4)
         self.cls_head = skip_init(nn.Linear, n, num_classes_with_bg)
 
-    def forward(self, x, mask=None, train: bool = False, generator=None):
+    def dropout_masks(self, rows_shape, generator: torch.Generator,
+                      device) -> list:
+        """The dropout keep masks of one training forward on ``[*rows_shape,
+        D]`` rows, drawn from ``generator`` layer by layer: [*rows_shape,
+        n] bool for each hidden layer, None for a layer whose rate is 0
+        (which draws nothing)."""
+        return [keep_mask((*rows_shape, spec.n), spec.dropout, generator,
+                          device) if spec.dropout > 0 else None
+                for spec in self.model_cfg.class_layers]
+
+    def forward(self, x, mask=None, train: bool = False, masks=None):
         """x: [..., R, D] -> (reg [..., R, 4] float32, log_probs
         [..., R, C+1] float32).
 
         ``train``: batch norm over the valid rows (``mask`` [..., R], None =
-        all valid) of each leading group, and dropout with masks from
-        ``generator``; then a third output, the new batch-norm running
-        statistics ``{"bn<i>.running_mean": ..., "bn<i>.running_var": ...}``
-        (the buffers themselves are not written)."""
+        all valid) of each leading group, and dropout with ``masks``
+        (:meth:`dropout_masks`); then a third output, the new batch-norm
+        running statistics ``{"bn<i>.running_mean": ...,
+        "bn<i>.running_var": ...}`` (the buffers themselves are not
+        written)."""
         x = x.to(self.reg_head.weight.dtype)
         new_stats = {}
         for li, spec in enumerate(self.model_cfg.class_layers):
@@ -56,8 +73,11 @@ class ClassificationNet(nn.Module):
                 else:
                     x = bn(x)
             x = prelu(x, getattr(self, f"prelu{li}").weight)
-            if train:
-                x = dropout(x, spec.dropout, generator)
+            if train and spec.dropout > 0:
+                if masks is None:
+                    raise ValueError("a training forward with dropout needs "
+                                     "its masks")
+                x = apply_dropout(x, masks[li], spec.dropout)
         reg = self.reg_head(x).float()
         log_probs = F.log_softmax(self.cls_head(x).float(), dim=-1)
         if train:

@@ -8,9 +8,12 @@ Port of the JAX package's ``models/layers.py``:
 * :class:`MaskedBatchNorm` — batch norm computed in float32 and returned in
   the compute dtype: running statistics in eval, per-image masked batch
   statistics in training;
-* :func:`dropout` / :func:`spatial_dropout` — flax ``nn.Dropout`` (kept
-  values scaled by 1/(1-p)), whole channels per sample for the spatial
-  form, with masks drawn from an explicit ``torch.Generator``.
+* :func:`keep_mask` / :func:`apply_dropout` — flax ``nn.Dropout`` (kept
+  values scaled by 1/(1-p)) with a mask drawn ahead from an explicit
+  ``torch.Generator``: [B, C, 1, 1] drops whole channels per sample (the
+  spatial form). The models take the masks (``dropout_masks``); the
+  objective draws them all before the forward, so that a rematerialised
+  forward replays them.
 """
 
 from __future__ import annotations
@@ -31,28 +34,16 @@ def ceil_max_pool_2x2(x):
     return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
-def _keep_mask(shape, rate: float, generator, device):
+def keep_mask(shape, rate: float, generator, device):
+    """A bool mask of ``shape``, each value True with probability 1-rate,
+    drawn from ``generator`` (on ``device``)."""
     keep = torch.full(shape, 1.0 - rate, device=device)
     return torch.bernoulli(keep, generator=generator).to(torch.bool)
 
 
-def dropout(x, rate: float, generator: torch.Generator):
-    """flax ``nn.Dropout``: each value kept with probability 1-rate and
-    divided by it. The mask is drawn from ``generator`` (on the device of
-    ``x``)."""
-    if rate <= 0.0:
-        return x
-    keep = _keep_mask(x.shape, rate, generator, x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
-
-
-def spatial_dropout(x, rate: float, generator: torch.Generator):
-    """SpatialDropout of NCHW ``x``: whole channels dropped per sample
-    (flax ``Dropout(broadcast_dims=(1, 2))`` on NHWC)."""
-    if rate <= 0.0:
-        return x
-    keep = _keep_mask((x.shape[0], x.shape[1], 1, 1), rate, generator,
-                      x.device)
+def apply_dropout(x, keep, rate: float):
+    """``x / (1-rate)`` where ``keep`` (broadcast against ``x``) holds,
+    else 0."""
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -23,14 +23,16 @@ kernel output and the convolutions.
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 from torch.nn.utils import skip_init
 
 from frcnn_tpu_torch.config import ModelConfig
 from frcnn_tpu_torch.models.layers import (
+    apply_dropout,
     ceil_max_pool_2x2,
+    keep_mask,
     prelu,
-    spatial_dropout,
 )
 from frcnn_tpu_torch.ops.pool_bwd_kernel import ceil_max_pool_2x2_firstmax
 
@@ -63,14 +65,23 @@ class ProposalNet(nn.Module):
             self.add_module(f"anchor{ai}_out", skip_init(
                 nn.Conv2d, aspec.n, ANCHOR_CHANNELS, 1))
 
-    def forward(self, x, block0_out=None, train: bool = False,
-                generator=None):
+    def dropout_masks(self, batch: int, generator: torch.Generator,
+                      device) -> list:
+        """The spatial-dropout keep masks of one training forward, drawn
+        from ``generator`` block by block: [batch, filters, 1, 1] bool for
+        each block, None for a block whose rate is 0 (which draws
+        nothing)."""
+        return [keep_mask((batch, spec.filters, 1, 1), spec.dropout,
+                          generator, device) if spec.dropout > 0 else None
+                for spec in self.model_cfg.layers]
+
+    def forward(self, x, block0_out=None, train: bool = False, masks=None):
         """x: NHWC [B, H, W, 3] -> (anchor maps [B, Hi, Wi, 18] each,
         feature map [B, Hf, Wf, C_last]), in the compute dtype.
 
         ``block0_out``: NHWC output of the first block (from the fused
         block0 kernel); block 0's layers are then skipped. ``train``: apply
-        the spatial dropouts, with masks from ``generator``."""
+        the spatial dropouts with ``masks`` (:meth:`dropout_masks`)."""
         dt = self.block0_conv0.weight.dtype
         pool = POOL_VJPS[self.pool_vjp]
         if block0_out is not None:
@@ -85,8 +96,11 @@ class ProposalNet(nn.Module):
             for si in range(spec.conv_steps):
                 h = getattr(self, f"block{bi}_conv{si}")(h)
                 h = prelu(h, getattr(self, f"block{bi}_prelu{si}").weight)
-                if train and si == 0:
-                    h = spatial_dropout(h, spec.dropout, generator)
+                if train and si == 0 and spec.dropout > 0:
+                    if masks is None:
+                        raise ValueError("a training forward with dropout "
+                                         "needs its masks")
+                    h = apply_dropout(h, masks[bi], spec.dropout)
             h = pool(h)
             block_outputs.append(h)
 

@@ -27,23 +27,27 @@ cast_for_compute``), so their gradients reach the masters in float32.
 ``cfg.pallas_mode`` picks the ROI pool: "off" the plain versions of the
 forward and its gradient (``ops/roi_pool.py``), otherwise the CUDA kernels
 (``ops/roi_pool_kernel.py``), both skipping invalid rois. Random draws (the
-Gumbel noise of the negative sampling, then the dropout masks) come from
-the ``torch.Generator`` passed in, in that order.
+Gumbel noise of the negative sampling, then the dropout masks of pnet and
+of cnet) come from the ``torch.Generator`` passed in, in that order, all
+before the forward. ``cfg.remat`` recomputes pnet in the backward pass;
+``bwd_cut`` truncates the backward for profiling; a :class:`BatchShard`
+makes the function one process's part of a data-parallel step
+(``parallel/``).
 
 Deliberate differences from the JAX objective: the regression targets of
 padded (invalid) positive slots are zeroed before the masked sums, so a
 degenerate gt box in a padded slot cannot turn the sums into NaN
-(0 * inf); valid slots are unchanged. ``cfg.remat`` and the profiling-only
-``bwd_cut`` are not ported yet.
+(0 * inf); valid slots are unchanged.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.detect.detector import take_rows
@@ -163,7 +167,22 @@ def _sub(tree: dict, prefix: str) -> dict:
     return {k[n:]: v for k, v in tree.items() if k.startswith(prefix)}
 
 
-def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
+class BatchShard(NamedTuple):
+    """This process's part of a data-parallel step: images ``[rank * b,
+    (rank + 1) * b)`` of a batch of ``world_size * b``. ``all_reduce``
+    returns the sum of a tensor over the processes
+    (``parallel/mesh.py::batch_shard``)."""
+
+    rank: int
+    world_size: int
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+BWD_CUTS = ("fm", "maps")
+
+
+def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet,
+                    bwd_cut: tuple = (), shard: BatchShard | None = None):
     """Returns ``loss_fn(params, batch_stats, batch, generator, labels=None)
     -> (total, (new_batch_stats, metrics))``.
 
@@ -174,11 +193,27 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
     on the same device. ``labels``: a :class:`LabeledExamples` to use
     instead of drawing them (then no labeling noise is drawn). The metrics
     are 0-d float32 tensors; nothing is copied to the host.
+
+    ``cfg.remat``: pnet's forward is recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations; its
+    dropout masks are drawn before it and passed in, so the recompute
+    replays them and the result is the same, bit for bit.
+
+    ``bwd_cut``: the profiling-only cuts of the JAX objective: ``"fm"``
+    detaches the feature map that goes into the ROI pool (no ROI-pool
+    backward), ``"maps"`` also the anchor maps (no pnet backward). Forward
+    values are the same in every mode.
+
+    ``shard``: ``batch`` is this process's part of a data-parallel batch.
+    Its labeling noise and dropout masks are its rows of the whole batch's
+    draws, and the sums and counts are summed over the processes before
+    the one division, so that the metrics are the whole batch's and the
+    gradients summed over the processes are the whole batch's gradients;
+    the new batch-norm statistics are averaged over the processes.
     """
-    if cfg.remat:
-        raise NotImplementedError(
-            "cfg.remat is not ported: rematerialising pnet must replay its "
-            "dropout masks, which come from an explicit generator")
+    bad = set(bwd_cut) - set(BWD_CUTS)
+    if bad:
+        raise ValueError(f"bwd_cut takes {BWD_CUTS}, got {sorted(bad)}")
     s = cfg.shapes
     kh, kw = cfg.roi_pooling.kh, cfg.roi_pooling.kw
     R = s.max_roi_examples
@@ -194,6 +229,11 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
                    scaling=cfg.normalization.scaling)
     tables = {}
 
+    def pnet_forward(pnet_params, norm, masks):
+        pp = cast_for_compute(pnet_params, names_p, cdt)
+        return functional_call(pnet, pp, (norm,),
+                               {"train": True, "masks": masks})
+
     def loss_fn(params, batch_stats, batch: TrainBatch, generator,
                 labels: LabeledExamples | None = None):
         device = batch.image.device
@@ -202,21 +242,42 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
         anchors = tables[device]
         bsz = batch.image.shape[0]
         h, w = batch.true_hw[:, 0], batch.true_hw[:, 1]
+        rank, world = (0, 1) if shard is None else shard[:2]
+
+        def mine(draws):
+            """This process's rows of draws made for the whole batch."""
+            if world == 1:
+                return draws
+            return [None if d is None else d[rank * bsz:(rank + 1) * bsz]
+                    for d in draws]
 
         # 3. labeling (first: its noise is the generator's first draw)
         if labels is None:
-            shape = (bsz, gen.num_anchors)
-            noise_neg = M.gumbel(shape, generator, device)
-            noise_near = M.gumbel(shape, generator, device)
+            shape = (bsz * world, gen.num_anchors)
+            noise_neg, noise_near = mine([M.gumbel(shape, generator, device),
+                                          M.gumbel(shape, generator, device)])
             labels = label_batch(cfg, gen, anchors, batch, noise_neg,
                                  noise_near)
+        # then the dropout masks, drawn before the forwards
+        pnet_masks = mine(pnet.dropout_masks(bsz * world, generator, device))
+        cnet_masks = mine(cnet.dropout_masks((bsz * world, R), generator,
+                                             device))
 
         # 1-2. normalization, pnet
         image = unwire_uint8(batch.image, cfg.color_space)
         norm = normalize_image(image.float(), h, w, **norm_kw)
-        pp = cast_for_compute(_sub(params, "pnet."), names_p, cdt)
-        anchor_maps, fm = functional_call(
-            pnet, pp, (norm,), {"train": True, "generator": generator})
+        if cfg.remat:
+            # nothing in the region draws: no RNG state to keep
+            anchor_maps, fm = checkpoint(
+                pnet_forward, _sub(params, "pnet."), norm, pnet_masks,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            anchor_maps, fm = pnet_forward(_sub(params, "pnet."), norm,
+                                           pnet_masks)
+        if "fm" in bwd_cut:
+            fm = fm.detach()
+        if "maps" in bwd_cut:
+            anchor_maps = [m.detach() for m in anchor_maps]
         pred = flatten_anchor_maps(gen, anchor_maps)           # [B, A, 6]
 
         # 4. proposal losses
@@ -255,7 +316,7 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
         cp = cast_for_compute(_sub(params, "cnet."), names_c, cdt)
         creg, clogp, new_stats = functional_call(
             cnet, {**cp, **_sub(batch_stats, "cnet.")}, (pooled, roi_valid),
-            {"train": True, "generator": generator})
+            {"train": True, "masks": cnet_masks})
         # the frozen deltas clamped at +-20 and the encode base floored at
         # 1 px keep the targets finite for an untrained head (see the JAX
         # objective, objective.py:284-301)
@@ -276,21 +337,37 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet):
         nll = nll_loss(clogp, targets) * rv
         dcls_sum = (nll.sum(1) / torch.clamp(rv.sum(1), min=1.0)).sum()
 
-        denom = torch.clamp(cls_count, min=1.0)
+        sums = torch.stack([pcls_sum, preg_sum, dreg_sum, dcls_sum,
+                            cls_count, reg_count]).detach()
+        new_bs = {f"cnet.{k}": v for k, v in new_stats.items()}
+        if shard is not None:
+            # one collective: the whole batch's sums and counts, and the
+            # new statistics' sum over the processes
+            keys = list(new_bs)
+            flat = shard.all_reduce(torch.cat(
+                [sums, *[new_bs[k].reshape(-1) for k in keys]]))
+            sums, rest = flat[:6], flat[6:]
+            for k in keys:
+                n = new_bs[k].numel()
+                new_bs[k] = rest[:n].reshape(new_bs[k].shape) / world
+                rest = rest[n:]
+        pcls_all, preg_all, dreg_all, dcls_all, cls_all, reg_all = sums
+
+        denom = torch.clamp(cls_all, min=1.0)
+        # this process's share of the whole batch's objective: the sum over
+        # the processes is the objective (and its gradient)
         total = (pcls_sum + 10.0 * preg_sum + 10.0 * dreg_sum
                  + dcls_sum) / denom
-        reg_den = torch.clamp(reg_count, min=1.0)
+        reg_den = torch.clamp(reg_all, min=1.0)
         metrics = {
-            "pcls": pcls_sum / denom,
-            "preg": 10.0 * preg_sum / reg_den,
-            "dcls": dcls_sum / bsz,
-            "dreg": 10.0 * dreg_sum / reg_den,
-            "loss": pcls_sum / denom + 10.0 * preg_sum / reg_den,
-            "cls_count": cls_count,
-            "reg_count": reg_count,
+            "pcls": pcls_all / denom,
+            "preg": 10.0 * preg_all / reg_den,
+            "dcls": dcls_all / (bsz * world),
+            "dreg": 10.0 * dreg_all / reg_den,
+            "loss": pcls_all / denom + 10.0 * preg_all / reg_den,
+            "cls_count": cls_all,
+            "reg_count": reg_all,
         }
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        new_bs = {f"cnet.{k}": v for k, v in new_stats.items()}
         return total, (new_bs, metrics)
 
     return loss_fn

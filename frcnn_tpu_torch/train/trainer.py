@@ -1,10 +1,12 @@
 """Training driver: the train step, loss history and snapshots.
 
 Port of the JAX package's ``train/trainer.py`` (``graph_training``,
-``main.lua:103-153``) on one device. Its deliberate improvements over the
-reference carry over: the optimizer state is checkpointed, the lr schedule
-applies, and a step whose update has a non-finite element changes nothing
-(parameters, optimizer state and batch-norm statistics), reported as
+``main.lua:103-153``) on one device, or data-parallel over the processes
+of a ``torch.distributed`` group (``parallel/mesh.py``), where the JAX
+package shards the batch over a device mesh. Its deliberate improvements
+over the reference carry over: the optimizer state is checkpointed, the lr
+schedule applies, and a step whose update has a non-finite element changes
+nothing (parameters, optimizer state and batch-norm statistics), reported as
 ``metrics["skipped"]``. The step runs eagerly with no host sync inside;
 :meth:`Trainer.run_step` fetches its metrics once, :meth:`Trainer.run_chunk`
 once for K steps (the same trajectory as K ``run_step`` calls).
@@ -24,7 +26,9 @@ import torch
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.geometry.anchors import AnchorGenerator
 from frcnn_tpu_torch.models.factory import init_models
+from frcnn_tpu_torch.parallel.mesh import batch_rows
 from frcnn_tpu_torch.train.objective import (
+    BatchShard,
     TrainBatch,
     build_objective,
     value_and_grad,
@@ -80,6 +84,11 @@ def _select(ok, new, old):
     return [_select(ok, a, b) for a, b in zip(new, old)]
 
 
+def _rows(tree, rows: slice):
+    """``rows`` of every tensor of a NamedTuple of tensors."""
+    return type(tree)(*[x[rows] for x in tree])
+
+
 class Trainer:
     """Float32 master parameters, the optimizer of ``cfg`` and the
     objective, on one device (CUDA unless ``device`` says otherwise).
@@ -91,12 +100,27 @@ class Trainer:
     kernel when ``cfg.pallas_mode`` turns the kernels on (on the H100 it
     takes a third of the time of ``max_pool2d``'s backward, PERF.md), else
     the library backward.
+
+    ``shard`` (``parallel/mesh.py::batch_shard``): train data-parallel. Every
+    process holds the same parameters (same seed) and is given the same
+    whole batch; it computes on its rows (``images_per_step`` must divide
+    by the world size), the objective sums its sums and counts over the
+    processes, the gradients are summed over them, and the skip of a
+    non-finite update is decided on every process alike. The step then
+    equals the single-process step on the whole batch.
     """
 
     def __init__(self, cfg: Config, device="cuda", seed: Optional[int] = None,
                  pool_vjp: Optional[str] = None,
-                 metrics_path: Optional[str] = None):
+                 metrics_path: Optional[str] = None,
+                 shard: Optional[BatchShard] = None):
+        if shard is not None and cfg.shapes.images_per_step % \
+                shard.world_size:
+            raise ValueError(f"images_per_step {cfg.shapes.images_per_step} "
+                             f"does not divide over {shard.world_size} "
+                             f"processes")
         self.cfg = cfg
+        self.shard = shard
         self.device = torch.device(device)
         self.timer = StepTimer()
         self.metrics_logger = MetricsLogger(metrics_path)
@@ -132,16 +156,31 @@ class Trainer:
                                  f"bucket")
             gen = AnchorGenerator(self.cfg, image_hw=hw)
             self._objectives[hw] = build_objective(self.cfg, gen, self.pnet,
-                                                   self.cnet)
+                                                   self.cnet,
+                                                   shard=self.shard)
         return self._objectives[hw]
 
     def compute_gradients(self, batch: TrainBatch, labels=None):
         """``(total, (new_batch_stats, metrics), grads)`` of the objective
-        at the current parameters; draws from the trainer's generator."""
+        at the current parameters; draws from the trainer's generator.
+        Data-parallel, ``batch`` (and ``labels``) are the whole batch's;
+        ``total`` is this process's share, the rest the whole batch's."""
         batch = batch.to(self.device)
         loss_fn = self.objective(batch.image.shape[1:3])
-        return value_and_grad(loss_fn, self.params, self.batch_stats, batch,
-                              self.generator, labels)
+        if self.shard is None:
+            return value_and_grad(loss_fn, self.params, self.batch_stats,
+                                  batch, self.generator, labels)
+        rows = batch_rows(batch.image.shape[0], self.shard.rank,
+                          self.shard.world_size)
+        total, aux, grads = value_and_grad(
+            loss_fn, self.params, self.batch_stats, _rows(batch, rows),
+            self.generator, None if labels is None else _rows(labels, rows))
+        flat = self.shard.all_reduce(torch.cat(
+            [g.reshape(-1) for g in grads.values()]))
+        out = {}
+        for k, g in grads.items():
+            out[k], flat = flat[:g.numel()].reshape(g.shape), flat[g.numel():]
+        return total, aux, out
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor],
                         new_batch_stats: Dict[str, torch.Tensor]):
@@ -156,6 +195,10 @@ class Trainer:
         # give an inf objective with finite gradients, and skipping those
         # steps would freeze the parameters that produce it
         ok = torch.stack([torch.isfinite(u).all() for u in updates]).all()
+        if self.shard is not None:
+            # the updates agree on every process; the vote makes the
+            # decision one even if an update's rounding did not
+            ok = self.shard.all_reduce((~ok).to(torch.float32)) == 0
         new_params = torch._foreach_add(old, updates)
         self.params = dict(zip(self.names, _select(ok, new_params, old)))
         self.opt_state = _select(ok, new_opt, self.opt_state)

@@ -22,8 +22,11 @@ from frcnn_tpu.models.factory import init_params
 from frcnn_tpu.models.layers import MaskedBatchNorm as JBN
 from frcnn_tpu_torch.config import Config
 from frcnn_tpu_torch.models.factory import create_models, init_models
-from frcnn_tpu_torch.models.layers import MaskedBatchNorm, dropout
-from frcnn_tpu_torch.models.layers import spatial_dropout
+from frcnn_tpu_torch.models.layers import (
+    MaskedBatchNorm,
+    apply_dropout,
+    keep_mask,
+)
 from frcnn_tpu_torch.utils.weights import from_jax_params
 from tests.tiny import tiny_config
 
@@ -171,7 +174,7 @@ def test_cnet_train_mode_matches_flax():
 def test_dropout_masks_and_scale():
     g = torch.Generator().manual_seed(0)
     x = torch.rand(64, 48, 3, 5) + 0.5
-    y = spatial_dropout(x, 0.4, g)
+    y = apply_dropout(x, keep_mask((64, 48, 1, 1), 0.4, g, "cpu"), 0.4)
     kept = (y != 0).reshape(64, 48, -1)
     # whole channels: every cell of a (sample, channel) kept or dropped
     assert torch.equal(kept.all(-1), kept.any(-1))
@@ -179,12 +182,25 @@ def test_dropout_masks_and_scale():
     assert abs(float(frac) - 0.4) < 0.04
     k = kept.all(-1)[..., None, None].expand_as(x)
     assert torch.equal(y[k], x[k] / 0.6)
-    z = dropout(x, 0.5, g)
+    z = apply_dropout(x, keep_mask(x.shape, 0.5, g, "cpu"), 0.5)
     assert abs(float((z == 0).float().mean()) - 0.5) < 0.02
     assert torch.equal(z[z != 0], x[z != 0] / 0.5)
-    # the same generator state gives the same masks; rate 0 draws nothing
-    a = dropout(x, 0.5, torch.Generator().manual_seed(7))
-    b = dropout(x, 0.5, torch.Generator().manual_seed(7))
+    # the same generator state gives the same masks; a model layer of rate
+    # 0 draws nothing
+    a = keep_mask(x.shape, 0.5, torch.Generator().manual_seed(7), "cpu")
+    b = keep_mask(x.shape, 0.5, torch.Generator().manual_seed(7), "cpu")
     assert torch.equal(a, b)
+    cfg = Config.from_json(tiny_config().to_json())
+    pnet, _ = create_models(cfg)
     s = g.get_state()
-    assert dropout(x, 0.0, g) is x and torch.equal(g.get_state(), s)
+    masks = pnet.dropout_masks(2, g, "cpu")
+    assert [m is None for m in masks] == [
+        spec.dropout == 0 for spec in cfg.model.layers]
+    assert masks[1].shape == (2, cfg.model.layers[1].filters, 1, 1)
+    assert not torch.equal(g.get_state(), s)
+    s = g.get_state()
+    no_drop = dataclasses.replace(cfg.model, class_layers=tuple(
+        dataclasses.replace(c, dropout=0.0) for c in cfg.model.class_layers))
+    _, cnet = create_models(cfg.replace(model=no_drop))
+    assert cnet.dropout_masks((2, 5), g, "cpu") == [None, None]
+    assert torch.equal(g.get_state(), s)

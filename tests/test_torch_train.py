@@ -119,11 +119,14 @@ def _no_dropout(jc):
                            for s in m.class_layers)))
 
 
-@pytest.fixture(scope="module")
-def jax_objective():
-    """One JAX value_and_grad of the tiny objective (dropout zeroed, XLA ROI
-    pool and SelectAndScatter pool backward) and the labels it drew."""
-    jc = _no_dropout(tiny_config())
+def _jax_value_and_grad(remat: bool, jc=None, hw=None):
+    """One JAX value_and_grad of the objective of ``jc`` (default: the tiny
+    config with XLA's ROI pool and SelectAndScatter pool backward) with
+    dropout zeroed, in bucket ``hw`` (default: the primary), pnet under
+    jax.checkpoint when ``remat``, and the labels it drew."""
+    jc = _no_dropout(jc or tiny_config()).replace(remat=remat)
+    if hw is not None:
+        jc = jc.replace(shapes=dataclasses.replace(jc.shapes, image_hw=hw))
     gen = JGen(jc)
     jp, jcn = j_create(jc)
     params, stats = init_params(jc, jax.random.PRNGKey(0))
@@ -149,14 +152,21 @@ def jax_objective():
             to_np(new_bs), to_np(metrics), to_np(grads), to_np(labels))
 
 
-@pytest.mark.parametrize("mode,pool_vjp", [("off", "library"),
-                                           ("on", "kernel"),
-                                           ("on", "library"),
-                                           ("off", "kernel")])
-def test_objective_and_gradients_match_jax(jax_objective, mode, pool_vjp):
-    (jc, params, stats, batch, total, new_bs, metrics, grads,
-     labels) = jax_objective
-    cfg = _port_cfg(jc, pallas_mode=mode)
+@pytest.fixture(scope="module")
+def jax_objective():
+    return _jax_value_and_grad(remat=False)
+
+
+@pytest.fixture(scope="module")
+def jax_remat_objective():
+    return _jax_value_and_grad(remat=True)
+
+
+def _port_inputs(jax_result, cfg, pool_vjp):
+    """The port's objective of ``cfg`` (in the JAX run's bucket) and its
+    inputs, made from the JAX run's parameters, statistics, batch and
+    labels."""
+    jc, params, stats, batch, *_, labels = jax_result
     pnet, cnet = create_models(cfg, pool_vjp)
     sd = weights.from_jax_params(params, stats, cfg)
     tparams = {f"{net}.{k}": v for net, m in (("pnet", pnet), ("cnet", cnet))
@@ -167,8 +177,17 @@ def test_objective_and_gradients_match_jax(jax_objective, mode, pool_vjp):
     tlabels = LabeledExamples(*[_t(getattr(labels, f)).to(
         torch.int64 if getattr(labels, f).dtype == np.int32 else torch.bool)
         for f in LabeledExamples._fields])
-    loss_fn = build_objective(cfg, TGen(cfg), pnet, cnet)
+    gen = TGen(cfg, image_hw=tuple(jc.shapes.image_hw))
+    loss_fn = build_objective(cfg, gen, pnet, cnet)
     tbatch = TrainBatch(*[np.asarray(x) for x in batch]).to("cpu")
+    return loss_fn, tparams, tstats, tbatch, tlabels
+
+
+def _assert_matches_jax(jax_result, cfg, pool_vjp):
+    (jc, params, stats, batch, total, new_bs, metrics, grads,
+     labels) = jax_result
+    loss_fn, tparams, tstats, tbatch, tlabels = _port_inputs(
+        jax_result, cfg, pool_vjp)
     got, (nbs, m), g = value_and_grad(loss_fn, tparams, tstats, tbatch,
                                       torch.Generator().manual_seed(0),
                                       labels=tlabels)
@@ -190,11 +209,84 @@ def test_objective_and_gradients_match_jax(jax_objective, mode, pool_vjp):
             err_msg=jax.tree_util.keystr(path))
 
 
-def test_remat_is_not_ported():
-    cfg = _port_cfg(tiny_config(), remat=True)
-    pnet, cnet = create_models(cfg)
-    with pytest.raises(NotImplementedError):
-        build_objective(cfg, TGen(cfg), pnet, cnet)
+@pytest.mark.parametrize("mode,pool_vjp", [("off", "library"),
+                                           ("on", "kernel"),
+                                           ("on", "library"),
+                                           ("off", "kernel")])
+def test_objective_and_gradients_match_jax(jax_objective, mode, pool_vjp):
+    _assert_matches_jax(jax_objective, _port_cfg(jax_objective[0],
+                                                 pallas_mode=mode), pool_vjp)
+
+
+@pytest.mark.parametrize("mode,pool_vjp", [("off", "library"),
+                                           ("on", "kernel")])
+def test_remat_matches_jax_remat_objective(jax_remat_objective, mode,
+                                           pool_vjp):
+    """The port's remat objective (torch.utils.checkpoint over pnet)
+    against the JAX remat objective (jax.checkpoint), at the tolerances
+    above."""
+    result = jax_remat_objective
+    cfg = _port_cfg(result[0], pallas_mode=mode)
+    assert cfg.remat
+    _assert_matches_jax(result, cfg, pool_vjp)
+
+
+def _port_step(cfg, pool_vjp="kernel", bwd_cut=()):
+    """The port's objective, its value and gradients on the tiny config
+    with dropout ON (masks from the generator), float32, CPU."""
+    pnet, cnet = create_models(cfg, pool_vjp)
+    tr = Trainer(cfg, device="cpu", seed=4, pool_vjp=pool_vjp)
+    loss_fn = build_objective(cfg, TGen(cfg), pnet, cnet, bwd_cut=bwd_cut)
+    batch = _np_batch(tiny_config(), 13)
+    return value_and_grad(loss_fn, tr.params, tr.batch_stats,
+                          batch.to("cpu"), torch.Generator().manual_seed(3))
+
+
+def test_remat_on_and_off_are_bitwise_equal():
+    """Remat replays pnet's dropout masks (drawn before the checkpointed
+    region): the same generator gives bitwise the same loss, metrics,
+    statistics and gradients, through the kernel pool backward too."""
+    cfg = _port_cfg(tiny_config(), pallas_mode="on")
+    assert any(s.dropout > 0 for s in cfg.model.layers)
+    a = _port_step(cfg)
+    b = _port_step(cfg.replace(remat=True))
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert x.keys() == y.keys()
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    assert a[2].keys() == b[2].keys()
+    for k in a[2]:
+        assert torch.equal(a[2][k], b[2][k]), k
+    assert any(float(g.abs().max()) > 0 for k, g in a[2].items()
+               if k.startswith("pnet."))
+
+
+def test_bwd_cut_keeps_forward_and_zeroes_the_cut_gradients():
+    cfg = _port_cfg(tiny_config(), pallas_mode="on")
+    full = _port_step(cfg)
+    fm = _port_step(cfg, bwd_cut=("fm",))
+    both = _port_step(cfg, bwd_cut=("fm", "maps"))
+    for cut in (fm, both):
+        assert torch.equal(cut[0], full[0])
+        for k in full[1][1]:
+            assert torch.equal(cut[1][1][k], full[1][1][k]), k
+        for k, g in full[2].items():     # cnet's gradients are untouched
+            if k.startswith("cnet."):
+                assert torch.equal(cut[2][k], g), k
+    # "fm": the anchor heads keep their gradients, the backbone loses the
+    # ROI-pool path's share
+    for k, g in full[2].items():
+        if k.startswith("pnet.anchor"):
+            assert torch.equal(fm[2][k], g), k
+    assert not torch.equal(fm[2]["pnet.block3_conv0.weight"],
+                           full[2]["pnet.block3_conv0.weight"])
+    # "fm" + "maps": no pnet backward at all
+    for k, g in both[2].items():
+        if k.startswith("pnet."):
+            assert not g.any(), k
+    with pytest.raises(ValueError):
+        build_objective(cfg, TGen(cfg), *create_models(cfg), bwd_cut=("x",))
 
 
 # -- optimizers -------------------------------------------------------------------
