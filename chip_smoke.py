@@ -5,7 +5,8 @@
 Phases, each printing one flushed line with its seconds:
 
   env      the card (torch and nvidia-smi: name, power limit)
-  build    one nvcc call builds every kernel of frcnn_tpu_torch/csrc
+  build    one nvcc per source of frcnn_tpu_torch/csrc, all started
+           together, then one link, build every kernel
   kernels  each kernel against its plain PyTorch version at the serving
            shapes (equal, or within the stated tolerance), with CUDA-event
            times of kernel, plain version and, where one PyTorch call
@@ -126,14 +127,37 @@ Phases, each printing one flushed line with its seconds:
            all-reduces) against ``Trainer``'s step at the [train]
            tolerances, and a one-replica ShardedDetector against the
            Detector
+  entry    ``frcnn_tpu_torch.entry.entry()`` (the flagship detect program,
+           B=2 zero frames, bf16: shapes and finite values, as zero frames
+           propose nothing); the same program in float32 on brick frames
+           with weights that carry load, plain versions (as the config
+           runs it) against the kernels, proposals and detections nonzero;
+           the real-config stage of ``dryrun_multichip`` (vgg_small
+           224x800, kernels, remat) over a world-size-1 NCCL group, with
+           its kernel launches
+  bench    ``frcnn_tpu_torch.bench``'s JSON record for bf16, pallas+s2d,
+           int8s+pallas+s2d+s8p and imagenet+int8s+pallas+s2d at B=8, 8
+           iterations, each mode's kernel launches per call checked; the
+           float32 pallas+s2d program (weights that carry load + stress
+           biases; proposals and detections nonzero) through the kernels
+           against the plain versions
+  profile-stages  ``tools/profile_detect.py`` (default stages and
+           tailparts, pallas+s2d) and ``tools/profile_train.py`` (step,
+           grad, bwdparts with the kernels), B=8, 450x800: ms per stage
+  accuracy 24 duplo-scale synthetic scenes and the detect phase's weights
+           as a run directory: eval_quant_parity (the four headline
+           modes), sweep_conf_gate, recall_attribution (fg 0.5, 0.95),
+           analyze_detections; then train_synthetic_eval --scale tiny;
+           every mAP printed, no accuracy limit
 
 then one JSON line of per-kernel numbers (with ``device_ms``, the device
 time per path call where it was measured, NMS's ``device_ms_large`` per
 vgg_large 480x1000 detect, ``launches_data``, the launches of the data
 phase's training and evaluation, and for the ROI-pool forward and backward
 and the pool backward ``launches_train_large`` and
-``device_ms_train_large``, per vgg_large train step and bucket, and
-``launches_cli`` by subcommand), the card's name and power limit,
+``device_ms_train_large``, per vgg_large train step and bucket,
+``launches_cli`` by subcommand, ``launches_dryrun_real`` and
+``launches_bench`` by mode), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -1054,8 +1078,8 @@ def _check_f32_detect(phase: str, ker, ref, what: str, t: float,
     torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-3)
     torch.testing.assert_close(got.confidence, want.confidence, rtol=0,
                                atol=1e-4)
-    log(phase, f"float32 B={B} {what}: kernels == plain versions "
-        f"({int(ref.proposals_valid.sum())} proposals, "
+    log(phase, f"float32 B={ref.valid.shape[0]} {what}: kernels == plain "
+        f"versions ({int(ref.proposals_valid.sum())} proposals, "
         f"{int(ref.valid.sum())} detections"
         f"{'' if ordered else ', matched by class and box'})", t)
 
@@ -2886,6 +2910,332 @@ def phase_parallel():
         dist.destroy_process_group()
 
 
+# -- the flagship entry and the dryrun's real stage ---------------------------
+
+def _launches():
+    """{kernel: launches} since the counts were set to 0, nonzero only."""
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
+    return {n: k.launches for n, k in REGISTRY.items() if k.launches}
+
+
+def _zero_launches():
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
+    for k in REGISTRY.values():
+        k.launches = 0
+
+
+def _nonempty(phase: str, what: str, res) -> None:
+    """A comparison of ``res`` with another result compares something:
+    it holds stage-1 proposals and detections."""
+    if not (res.proposals_valid.any() and res.valid.any()):
+        raise AssertionError(
+            f"{phase} {what}: {int(res.proposals_valid.sum())} proposals, "
+            f"{int(res.valid.sum())} detections: the comparison would hold "
+            f"nothing")
+
+
+def phase_entry(kernels, device: str = "cuda"):
+    """``frcnn_tpu_torch.entry.entry()`` on the card (the flagship detect
+    program: vgg_small, duplo at 450x800, seeded weights, B=2 zero frames,
+    bf16, the plain versions as the config has no kernels on): shapes and
+    finite values only, as the zero frames give no proposal. Then the same
+    program in float32 with weights that carry load (``_seeded_models``
+    and the bench's stress biases) on two brick frames, as the config
+    runs it (the plain versions) against the same program with the
+    kernels on (NMS, ROI pool); both must hold proposals and detections.
+    Then the real-config stage of ``dryrun_multichip`` (vgg_small, duplo,
+    224x800, kernels, remat, bf16) as rank 0 of a world-size-1 NCCL
+    group, with its kernel launches. (``device="cpu"`` rehearses the
+    phase: gloo, the plain versions.)"""
+    import torch.distributed as dist
+
+    from frcnn_tpu_torch.bench import stress_weights
+    from frcnn_tpu_torch.detect.detector import build_detect_fn
+    from frcnn_tpu_torch.entry import entry, entry_config
+    from frcnn_tpu_torch.geometry.anchors import AnchorGenerator
+    from frcnn_tpu_torch.models.factory import for_compute
+    from frcnn_tpu_torch.ops.color import unwire_uint8
+    from frcnn_tpu_torch.parallel import dryrun
+    from frcnn_tpu_torch.parallel.mesh import free_port
+
+    t = time.perf_counter()
+    fn, args = entry(device)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    D = entry_config().shapes.max_detections
+    if out.boxes.shape != (2, D, 4) or not all(
+            torch.isfinite(getattr(out, f)).all()
+            for f in ("boxes", "confidence", "proposals")):
+        raise AssertionError(f"entry: boxes {tuple(out.boxes.shape)}, "
+                             f"non-finite outputs")
+    ms = time_ms(lambda: fn(*args), reps=5, warmup=1)
+    log("entry", f"entry() on {args[0].device}: {entry_config().model.name}"
+        f" {tuple(args[0].shape)} {args[0].dtype}, {ms:.3f} ms/call; "
+        f"{int(out.valid.sum())} detections and "
+        f"{int(out.proposals_valid.sum())} proposals on the zero frames "
+        f"(shapes and finite values only)", t)
+
+    t = time.perf_counter()
+    _f32()
+    cfg32 = entry_config().replace(compute_dtype="float32")
+    # 17 class logits: a spread of 100 takes some past the 0.2 gate
+    pnet, cnet = _seeded_models(cfg32, cls_spread=100.0)
+    with torch.no_grad():
+        stress_weights(pnet)
+    H, W = cfg32.shapes.image_hw
+    images = unwire_uint8(torch.from_numpy(_frames(3, 2, (H, W))[0]),
+                          cfg32.color_space).to(device)
+    res = {}
+    for mode in ("off", "on"):
+        c = cfg32.replace(pallas_mode=mode)
+        res[mode] = build_detect_fn(
+            c, AnchorGenerator(c), for_compute(pnet, torch.float32, device),
+            for_compute(cnet, torch.float32, device),
+            torch.device(device))(images, args[1])
+    _nonempty("entry", "float32 program", res["off"])
+    torch.testing.assert_close(res["on"].proposals, res["off"].proposals,
+                               rtol=0, atol=1e-3)
+    _check_f32_detect("entry", res["on"], res["off"],
+                      "entry program, brick frames, weights that carry "
+                      "load + stress biases (stage-1 survivors within 1e-3)",
+                      t)
+
+    t = time.perf_counter()
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        _zero_launches()
+        metrics = dryrun.dryrun_real_config(1, device=device)
+        torch.cuda.synchronize()
+        launches = _launches()
+    finally:
+        dist.destroy_process_group()
+    want = {"roi_pool": 1, "roi_pool_bwd": 1, "pool_bwd": 4}
+    if launches != want and device == "cuda":
+        raise AssertionError(f"entry: dryrun real stage launches "
+                             f"{launches}, expected {want}")
+    for k, n in launches.items():
+        kernels[k]["launches_dryrun_real"] = n
+    log("entry", f"dryrun_multichip real-config stage ({backend} world "
+        f"size 1): "
+        f"loss {metrics['loss']:.4f}, skipped {metrics['skipped']:.0f}; "
+        f"launches {launches}", t)
+
+
+# -- the bench -------------------------------------------------------------------
+
+BENCH_MODES = {      # mode -> the kernels its program launches
+    "bf16": set(),
+    "pallas+s2d": {"fused_block0", "nms_keep_mask", "roi_pool"},
+    "int8s+pallas+s2d+s8p": {"block0_s8out", "nms_keep_mask", "roi_pool"},
+    "imagenet+int8s+pallas+s2d": {"block0_2conv_int8", "nms_keep_mask",
+                                  "roi_pool"},
+}
+BENCH_ITERS = 8
+
+
+def phase_bench(kernels, device: str = "cuda"):
+    """``frcnn_tpu_torch.bench``'s measurement at B=8, 8 iterations, for
+    four modes: one JSON record each, with the kernel launches per timed
+    call (each mode's kernels, and none for bf16); then the float32
+    ``pallas+s2d`` program, with weights that carry load
+    (``_seeded_models``) under the stress biases, against the same
+    program through the plain versions; both must hold proposals and
+    detections."""
+    from frcnn_tpu_torch import bench
+
+    for mode, want in BENCH_MODES.items():
+        t = time.perf_counter()
+        _zero_launches()
+        rec = bench.measure(B, BENCH_ITERS, mode, device)
+        if device == "cuda" and set(rec["kernels"]) != want or \
+                rec["value"] <= 0:
+            raise AssertionError(f"bench {mode}: launches {rec['kernels']},"
+                                 f" expected {sorted(want)}")
+        for k, n in rec["kernels"].items():
+            kernels[k].setdefault("launches_bench", {})[mode] = n
+        print(f"[bench] {json.dumps(rec)}", flush=True)
+        log("bench", f"{mode}: {rec['value']:.2f} img/s", t)
+        torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    _f32()
+    cfg = bench.bench_config("pallas+s2d").replace(compute_dtype="float32")
+    models = _seeded_models(cfg, cls_spread=100.0)   # as in [entry]
+    ker_fn, args = bench.bench_program(cfg, "pallas+s2d", B, device,
+                                       models=models)
+    ker = ker_fn(*args)
+    plain_fn, pargs = bench.bench_program(cfg.replace(pallas_mode="off"),
+                                          "pallas+s2d", B, device,
+                                          models=models)
+    ref = plain_fn(*pargs)
+    _nonempty("bench", "float32 pallas+s2d program", ref)
+    torch.testing.assert_close(ker.proposals, ref.proposals, rtol=0,
+                               atol=1e-3)
+    # the block0 kernel's float32 sums are not cuDNN's: confidences that
+    # tie near 1 may take either slot
+    _check_f32_detect("bench", ker, ref,
+                      "pallas+s2d program, weights that carry load + stress "
+                      "biases (stage-1 survivors within 1e-3)", t,
+                      ordered=False)
+
+
+# -- the stage profilers -----------------------------------------------------------
+
+PROFILE_N = 8
+
+
+def phase_profile_stages(device: str = "cuda"):
+    """``tools/profile_detect.py`` (its default stages and tailparts,
+    mode=pallas+s2d, B=8, 450x800) and ``tools/profile_train.py`` (step,
+    grad, bwdparts with the kernels, B=8): ms per stage, and the kernels
+    each launched."""
+    from frcnn_tpu_torch.tools import profile_detect, profile_train
+
+    def out(line):
+        print(f"[profile-stages] {line}", flush=True)
+
+    t = time.perf_counter()
+    _zero_launches()
+    S = profile_detect.setup(B, "pallas+s2d", IMAGE_HW, device)
+    profile_detect.run(S, [*profile_detect.DEFAULT_STAGES, "tailparts"],
+                       PROFILE_N, out)
+    launches = _launches()
+    if device == "cuda" and not {"fused_block0", "nms_keep_mask",
+                                 "roi_pool"} <= set(launches):
+        raise AssertionError(f"profile_detect: launches {launches}")
+    log("profile-stages", f"profile_detect mode=pallas+s2d B={B} "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} n={PROFILE_N}: launches {launches}",
+        t)
+    del S
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    _zero_launches()
+    S = profile_train.setup(B, IMAGE_HW, pallas=True, device=device)
+    profile_train.run(S, ["step", "grad", "bwdparts"], PROFILE_N // 2, out)
+    launches = _launches()
+    if device == "cuda" and not {"roi_pool", "roi_pool_bwd",
+                                 "pool_bwd"} <= set(launches):
+        raise AssertionError(f"profile_train: launches {launches}")
+    log("profile-stages", f"profile_train pallas B={B} "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} n={PROFILE_N // 2}: launches "
+        f"{launches}", t)
+    del S
+    torch.cuda.empty_cache()
+
+
+# -- the accuracy tools ------------------------------------------------------------
+
+ACC_IMAGES = 24      # a quarter of them the validation split
+TINY_STEPS = 160
+
+
+def _tool(name: str, main, argv):
+    """One in-process run of a tool's ``main`` on the card, its output
+    lines printed under ``[accuracy]``; returns (lines, launches)."""
+    _zero_launches()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"accuracy: {name} returned {rc}")
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"[accuracy] {name}: {ln}", flush=True)
+    launches = _launches()
+    print(f"[accuracy] {name}: {time.perf_counter() - t:.2f} s wall; "
+          f"launches {launches}", flush=True)
+    return lines, launches
+
+
+def phase_accuracy(root: Path, device: str = "cuda"):
+    """The accuracy tools on the card: the duplo-scale synthetic scenes
+    (24 PNGs of 800x450, seed 0) and a checkpoint (the detect phase's
+    weights) make a run directory; eval_quant_parity over its four headline
+    modes, sweep_conf_gate, recall_attribution (fg 0.5, 0.95) and
+    analyze_detections on it; then train_synthetic_eval at the tiny scale.
+    Every mAP is printed; no accuracy limit: a path check."""
+    from frcnn_tpu_torch.data.importers import create_duplo_manifest
+    from frcnn_tpu_torch.tools import (
+        analyze_detections,
+        eval_quant_parity,
+        recall_attribution,
+        sweep_conf_gate,
+        train_synthetic_eval,
+    )
+    from frcnn_tpu_torch.utils.serialization import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from frcnn_tpu_torch.utils.weights import to_jax_params
+
+    t = time.perf_counter()
+    run, data = root / "acc", root / "acc" / "dataset"
+    w, h, lo, hi, n_cls = train_synthetic_eval.SCALES["duplo"][:5]
+    csv = train_synthetic_eval.make_dataset(str(data), ACC_IMAGES, w, h,
+                                            n_cls, lo, hi, seed=0)
+    manifest = str(data / "manifest.json")
+    create_duplo_manifest("synthetic-duplo", csv, None, manifest,
+                          validation_size=0.25, seed=0)
+    cfg = train_synthetic_eval.duplo_scale_cfg(n_cls).replace(
+        examples_base_path=str(data))
+    if CKPT.exists():
+        payload = load_checkpoint(str(CKPT))
+        params, stats, step = (payload["params"], payload["batch_stats"],
+                               int(payload["step"]))
+        src = f"{CKPT.relative_to(ROOT)} (step {step})"
+    else:
+        pnet, cnet = _seeded_models(cfg)
+        params, stats = to_jax_params(pnet.state_dict(), cnet.state_dict(),
+                                      cfg)
+        step, src = 0, "seeded initialisation (no checkpoint in the tree)"
+    save_checkpoint(str(run / "final.ckpt"), params=params,
+                    batch_stats=stats, step=step, config_json=cfg.to_json())
+    log("accuracy", f"{ACC_IMAGES} duplo-scale PNGs of {w}x{h} (seed 0) and "
+        f"the weights of {src} in {run.name}/final.ckpt", t)
+
+    t = time.perf_counter()
+    common = ["--run", str(run), "--scale", "duplo", "--device", device]
+    n_val = str(ACC_IMAGES // 4)
+    _, launches = _tool("eval_quant_parity", eval_quant_parity.main,
+                        [*common, "--eval-count", n_val, "--calib-count",
+                         n_val])
+    # int8_static_s2d: the float block0 kernel (the duplo config's chain
+    # is not s8-pooled), both NMS calls and the ROI pool
+    if device == "cuda" and not {"fused_block0", "nms_keep_mask",
+                                 "roi_pool"} <= set(launches):
+        raise AssertionError(f"eval_quant_parity: launches {launches}")
+    _tool("sweep_conf_gate", sweep_conf_gate.main,
+          [*common, "--eval-count", n_val])
+    _tool("recall_attribution", recall_attribution.main,
+          [*common, "--eval-count", n_val, "--fg", "0.5,0.95"])
+    _tool("analyze_detections", analyze_detections.main,
+          ["--ckpt", str(run / "final.ckpt"), "--manifest", manifest,
+           "--count", n_val, "--device", device])
+    log("accuracy", "eval_quant_parity, sweep_conf_gate, "
+        "recall_attribution and analyze_detections ran on the card", t)
+
+    t = time.perf_counter()
+    lines, _ = _tool("train_synthetic_eval", train_synthetic_eval.main,
+                     ["--scale", "tiny", "--steps", str(TINY_STEPS),
+                      "--out", str(root / "tiny"), "--chunk", "16",
+                      "--eval-count", "15", "--demo-count", "2",
+                      "--device", device])
+    result = json.loads((root / "tiny" / "result.json").read_text())
+    if result["steps"] != TINY_STEPS:
+        raise AssertionError(f"train_synthetic_eval: {result}")
+    log("accuracy", f"train_synthetic_eval --scale tiny, {TINY_STEPS} "
+        f"steps: mAP {result['mAP']:.4f} over {result['num_images']} "
+        f"images, loss {result['first_loss_mean_25']:.4f} -> "
+        f"{result['final_loss_mean_last25']:.4f}", t)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     name, smi = phase_env()
@@ -2902,6 +3252,11 @@ def main() -> int:
         phase_data(kernels, steps_ms["kernel"], Path(tmp))
         phase_cli(kernels, Path(tmp))
     phase_parallel()
+    phase_entry(kernels)
+    phase_bench(kernels)
+    phase_profile_stages()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_accuracy(Path(tmp))
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
 
     line = []
@@ -2917,7 +3272,8 @@ def main() -> int:
                      "device_ms": r.get("device_ms")})
         for extra in ("device_ms_train_step", "device_ms_large",
                       "launches_data", "launches_train_large",
-                      "device_ms_train_large", "launches_cli"):
+                      "device_ms_train_large", "launches_cli",
+                      "launches_dryrun_real", "launches_bench"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

@@ -80,15 +80,15 @@ def _require_file(path: str, what: str):
         raise SystemExit(f"{what} not found: {path!r}")
 
 
-def _device(args):
-    """The device of ``--device``; a CUDA device that is not there stops
-    the command (no fallback to the CPU)."""
+def require_device(name: str):
+    """``torch.device(name)``; a CUDA device that is not there stops the
+    command with a ``SystemExit`` (no fallback to the CPU)."""
     import torch
 
-    device = torch.device(args.device)
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is "
-                         f"available; pass --device cpu to run on the CPU")
+        raise SystemExit(f"--device {name}: no CUDA device is available; "
+                         f"pass --device cpu to run on the CPU")
     return device
 
 
@@ -104,7 +104,7 @@ def cmd_train(args):
 
     _require_file(args.train, "training manifest")
     _require_file(args.restore, "checkpoint")
-    device = _device(args)
+    device = require_device(args.device)
     cfg = build_config(args)
     log.info("config: %s classes=%d scales=%s", args.cfg, cfg.class_count,
              cfg.scales)
@@ -227,7 +227,7 @@ def cmd_demo(args):
     from frcnn_tpu_torch.utils.drawing import GREEN, draw_rectangle, save_image
 
     _require_file(args.train, "training manifest")
-    device = _device(args)
+    device = require_device(args.device)
     cfg = build_config(args)
     it = BatchIterator(cfg, args.train, seed=cfg.seed,
                        num_threads=args.threads)
@@ -260,7 +260,7 @@ def cmd_evaluate(args):
     from frcnn_tpu_torch.detect.evaluation import evaluate_map
 
     _require_file(args.train, "training manifest")
-    device = _device(args)
+    device = require_device(args.device)
     cfg = build_config(args)
     it = BatchIterator(cfg, args.train, seed=cfg.seed,
                        num_threads=args.threads)

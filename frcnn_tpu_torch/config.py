@@ -9,8 +9,8 @@ package. Fields that select TPU code paths (``pallas_mode``,
 port reads ``pallas_mode`` ("off" runs the plain PyTorch versions of the
 kernels everywhere, anything else the hand-written CUDA kernels on CUDA
 tensors), ``input_layout``, and for the int8 serving chain
-``quant_pool_s8`` and ``s2d_block0_int8``; the training objective refuses
-``remat`` (not ported yet).
+``quant_pool_s8`` and ``s2d_block0_int8``; the training objective reads
+``remat`` (pnet recomputed in the backward pass, ``train/objective.py``).
 """
 
 from __future__ import annotations

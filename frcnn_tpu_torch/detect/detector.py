@@ -100,6 +100,30 @@ def _cut_sum(*tensors):
     return tot
 
 
+def block0_weights_of(cfg: Config, pnet, device):
+    """The block0 kernel's weights of ``pnet`` (the float32 module: the
+    kernels take float32 biases) on ``device``, in the compute dtype:
+    (w27, bias, slope) for a one-conv first block,
+    ``Block0TwoConvParams`` for two."""
+    dt = compute_dtype(cfg)
+
+    def param(name):
+        return getattr(pnet, name).weight.detach().to(device)
+
+    def bias(name):
+        return getattr(pnet, name).bias.detach().to(device)
+
+    if cfg.model.layers[0].conv_steps == 2:
+        return block0_2conv_kernel.block0_2conv_weights(
+            param("block0_conv0"), bias("block0_conv0"),
+            param("block0_conv1"), bias("block0_conv1"),
+            param("block0_prelu0").float(), param("block0_prelu1").float(),
+            dt)
+    w27, b = block0_kernel.block0_weights(param("block0_conv0"),
+                                          bias("block0_conv0"), dt)
+    return w27, b, param("block0_prelu0").float().reshape(1)
+
+
 def compute_s2d_block0(cfg: Config, pnet, block0_params, lum4, chroma,
                        allow_quant_out: bool = True):
     """The first block from normalized planes in the compute dtype ->
@@ -356,24 +380,7 @@ class Detector:
         self.cnet = for_compute(cnet, dt, self.device)
         self.block0_params = None
         if cfg.input_layout == "s2d":
-            # from the float32 modules: the kernels take float32 biases
-            def param(name):
-                return getattr(pnet, name).weight.detach().to(self.device)
-
-            def bias(name):
-                return getattr(pnet, name).bias.detach().to(self.device)
-
-            if cfg.model.layers[0].conv_steps == 2:
-                self.block0_params = block0_2conv_kernel.block0_2conv_weights(
-                    param("block0_conv0"), bias("block0_conv0"),
-                    param("block0_conv1"), bias("block0_conv1"),
-                    param("block0_prelu0").float(),
-                    param("block0_prelu1").float(), dt)
-            else:
-                w27, b = block0_kernel.block0_weights(
-                    param("block0_conv0"), bias("block0_conv0"), dt)
-                self.block0_params = (
-                    w27, b, param("block0_prelu0").float().reshape(1))
+            self.block0_params = block0_weights_of(cfg, pnet, self.device)
         if quantized:
             qpnet = QuantizedPNet(cfg.model, quantize_pnet(pnet), act_dtype=dt,
                                   pool_s8=cfg.quant_pool_s8).to(self.device)

@@ -3,11 +3,12 @@
 Every ``csrc/*.cu`` exports ``extern "C"`` launchers that take raw device
 pointers, sizes and a ``cudaStream_t``, launch on that stream and return
 ``cudaGetLastError()``; the ``csrc/*.cuh`` headers they share are part of
-the build's hash. No source includes a PyTorch header, so one plain
-``nvcc`` call builds them all into one shared library in seconds; it is
-loaded with ``ctypes``. The build happens at first use, never at import,
-into ``frcnn_tpu_torch/_build/<hash of sources and flags>/`` (git-ignored):
-``nvcc`` writes a temporary name that is then moved into place, so a
+the build's hash. No source includes a PyTorch header, so plain ``nvcc``
+calls build them into one shared library in seconds: one compile per
+source, all started together, then one link; it is loaded with
+``ctypes``. The build happens at first use, never at import, into
+``frcnn_tpu_torch/_build/<hash of sources and flags>/`` (git-ignored): the
+link writes a temporary name that is then moved into place, so a
 concurrent or interrupted build never leaves a half-written library.
 """
 
@@ -37,7 +38,7 @@ NVCC_FLAGS = (
 # (frcnn_tpu_torch/tools/phase_split.py); a build of its own either way
 EXTRA_FLAGS: tuple = ()
 
-NVCC_TIMEOUT_S = 240    # a cold build of the kernels takes ~10 s
+NVCC_TIMEOUT_S = 240    # a cold build of the kernels takes ~10-25 s
 
 _lib = None
 REGISTRY = {}           # name -> CudaKernel, filled as wrapper modules import
@@ -74,17 +75,43 @@ def build() -> Path:
     if out.exists():
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    compile_flags = [f for f in flags if f != "-shared"]
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(o),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, o in zip(srcs, objs)]
+    logs, failed = [], []
+    try:
+        for src, p in zip(srcs, procs):
+            left = max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0))
+            logs.append(f"== {src.name}\n" + p.communicate(timeout=left)[0])
+            if p.returncode != 0:
+                failed.append(f"{src.name} ({p.returncode})")
+        if not failed:
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True, timeout=NVCC_TIMEOUT_S)
+            logs.append("== link\n" + link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log = "".join(logs)
+    (out_dir / "nvcc.log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           + proc.stderr[-4000:])
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                           + log[-4000:])
     os.replace(tmp, out)
     print(f"[frcnn_tpu_torch] nvcc built {len(srcs)} sources into "
           f"{out.relative_to(PACKAGE_DIR)} in {seconds:.1f} s", flush=True)

@@ -7,7 +7,9 @@
   average (the ``torch.Timer`` the reference allocates but never reports,
   ``main.lua:132,137``);
 * :func:`profiler_trace` — ``torch.profiler`` around a block, written as a
-  Chrome trace.
+  Chrome trace;
+* :func:`sync` and :func:`loop_time` — the device clock of the bench and
+  the stage profilers.
 """
 
 from __future__ import annotations
@@ -74,3 +76,44 @@ def profiler_trace(log_dir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _seconds(fn, k: int, device) -> float:
+    """Seconds of ``k`` calls of ``fn`` back to back: CUDA events on the
+    card (one synchronize at the end), the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t = time.perf_counter()
+    for _ in range(k):
+        fn()
+    return time.perf_counter() - t
+
+
+def loop_time(fn, n: int, label: str, device, out=print) -> float:
+    """Seconds per call of ``fn`` (``scripts/profile_detect.py:51-74``):
+    a first call (kernel build, allocations), then the best of 3 trials
+    at ``1 + n // 4`` and at ``1 + n`` calls, differenced."""
+    fn()
+    sync(device)
+
+    def timed(k, trials=3):
+        return min(_seconds(fn, k, device) for _ in range(trials))
+
+    t_small = timed(1 + n // 4)
+    t_big = timed(1 + n)
+    per = (t_big - t_small) / (n - n // 4)
+    out(f"{label:18s} {per * 1e3:9.3f} ms/iter   (n={n}, base "
+        f"{t_small * 1e3:.0f} ms)")
+    return per

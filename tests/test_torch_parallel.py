@@ -15,7 +15,8 @@
   a mean of per-process normalized losses (a plain DDP mean) differs from
   the whole batch's loss, as the last test shows.
 - ``ShardedDetector`` equals ``Detector`` and rejects an indivisible batch.
-- ``dryrun_multichip(2)`` passes.
+- ``dryrun_multichip(2)`` passes (its budget-gated real-config stage
+  skipped here).
 """
 
 import dataclasses
@@ -169,8 +170,13 @@ def test_sharded_detector_equals_detector(models):
         sharded.detect(imgs[:3], hw[:3])
 
 
-def test_dryrun_multichip_2(capsys):
+def test_dryrun_multichip_2(capsys, monkeypatch):
+    """The tiny and detect stages; the real-config stage is skipped by a
+    budget of 0 s (it has its own test in ``tests/test_torch_entry.py``)."""
+    monkeypatch.setenv("FRCNN_DRYRUN_BUDGET_S", "0")
+    monkeypatch.delenv("FRCNN_DRYRUN_FULL", raising=False)
     dryrun.dryrun_multichip(2)
     out = capsys.readouterr().out
     assert "dryrun_multichip(2) train ok" in out
     assert "dryrun_multichip(2) detect ok" in out
+    assert "dryrun_multichip(2): real-config stage SKIPPED" in out
