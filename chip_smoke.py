@@ -29,6 +29,18 @@ Phases, each printing one flushed line with its seconds:
            under 1% of the values (the flip rate is printed), also on the
            ragged shapes (both kernels); times beside the float modes' on
            the same planes, and bounds
+  probe    row 7, the int8 matmul probe's kernel (csrc/matmul.cu):
+           tools/probe_int8_dot.py at its default 1024^3 with its launches
+           counted; the kernel against its plain version at 1024^3 (s8
+           bitwise, bf16 bitwise on integer values and within 2^-20
+           sum|a_ik b_kj| on normal ones), on edge shapes (ragged tiles, K
+           and N off the 16-byte grain, K tails) and where int32 sums
+           wrap; kernel, plain and library (torch._int_mm, torch.matmul)
+           times, TOPS and bounds; then s8 at the int8 chain's largest
+           GEMM (720000, 1152, 128): bitwise torch._int_mm over the whole
+           product and the plain version on its first 8192 rows, the same
+           times, and torch._int_mm with B K-contiguous as the chain calls
+           it
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
@@ -144,10 +156,17 @@ Phases, each printing one flushed line with its seconds:
   profile-stages  ``tools/profile_detect.py`` (default stages and
            tailparts, pallas+s2d) and ``tools/profile_train.py`` (step,
            grad, bwdparts with the kernels), B=8, 450x800: ms per stage
+  micro    tools/bench_block0.py (B=2, every variant, then normparts),
+           tools/bench_pool_bwd.py and tools/bench_scan.py at 5
+           iterations: their lines, and the block0 and pool backward
+           kernels' launches in them
   accuracy 24 duplo-scale synthetic scenes and the detect phase's weights
            as a run directory: eval_quant_parity (the four headline
            modes), sweep_conf_gate, recall_attribution (fg 0.5, 0.95),
-           analyze_detections; then train_synthetic_eval --scale tiny;
+           analyze_detections; then train_synthetic_eval --scale tiny; 8
+           imagenet_smoke photo scenes (mixed orientation) written and
+           read back through a BatchIterator, the corrupt ones skipped and
+           logged; train_synthetic_eval --scale imagenet_smoke, 8 steps;
            every mAP printed, no accuracy limit
 
 then one JSON line of per-kernel numbers (with ``device_ms``, the device
@@ -157,7 +176,8 @@ phase's training and evaluation, and for the ROI-pool forward and backward
 and the pool backward ``launches_train_large`` and
 ``device_ms_train_large``, per vgg_large train step and bucket,
 ``launches_cli`` by subcommand, ``launches_dryrun_real`` and
-``launches_bench`` by mode), the card's name and power limit,
+``launches_bench`` by mode, ``launches_micro``; row 7's ``mm`` with its
+``bf16`` mode and its ``chain`` shape), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -205,7 +225,8 @@ KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
                   "frcnn_tpu_torch.ops.roi_pool_kernel",
                   "frcnn_tpu_torch.ops.block0_kernel",
                   "frcnn_tpu_torch.ops.block0_2conv_kernel",
-                  "frcnn_tpu_torch.ops.pool_bwd_kernel")
+                  "frcnn_tpu_torch.ops.pool_bwd_kernel",
+                  "frcnn_tpu_torch.ops.matmul_kernel")
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
 HBM_BPS = 3.35e12
@@ -3128,28 +3149,235 @@ def phase_profile_stages(device: str = "cuda"):
     torch.cuda.empty_cache()
 
 
+# -- the int8 matmul probe (row 7) ---------------------------------------------------
+
+PROBE_ITERS = 20
+# the int8 chain's largest GEMM: block 1's second conv at B=8 and 450x800
+# (_conv_layers: 8 x 225 x 400 rows of im2col, K = 9 x 128, N = 128)
+PROBE_CHAIN = (B * 225 * 400, 9 * 128, 128)
+PROBE_PLAIN_ROWS = 8192
+# one element; ragged tiles with K or N no multiple of 16 bytes (the
+# kernel's plain-load staging) and K tails; several tiles each way
+PROBE_EDGES = ((1, 1, 1), (33, 70, 17), (64, 96, 40), (300, 77, 260),
+               (130, 1040, 200), (257, 1152, 136))
+# int32 sums past 2^31 - 1: K x 127^2 >= 2^31 from K = 133,144
+PROBE_WRAP = (17, 133200, 24)
+
+
+def _mm_bound(m: int, k: int, n: int, dtype):
+    """A and B read once, the 4-byte output written once; 2 M K N
+    operations at the input type's peak."""
+    size = 1 if dtype == torch.int8 else 2
+    return bound_ms((m * k + k * n) * size + 4 * m * n, 2.0 * m * k * n,
+                    dtype)
+
+
+def _mm_check(K, plain, a, b, what: str, tol=None) -> float:
+    """The kernel against the plain version: bitwise, or within
+    ``tol(a, b)`` elementwise. Returns the max abs err."""
+    got = K.mm(a, b)
+    torch.cuda.synchronize()
+    want = plain(a, b)
+    if tol is None:
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"probe: {what}: {int((got != want).sum())} of "
+                f"{got.numel()} values differ from the plain version")
+        return 0.0
+    err = (got - want).abs()
+    if not bool((err <= tol(a, b)).all()):
+        raise AssertionError(f"probe: {what}: max abs err "
+                             f"{float(err.max()):.3g} past the tolerance")
+    return float(err.max())
+
+
+def _mm_times(K, plain, a, b, library, reps: int = 15, plain_reps: int = 5):
+    """(kernel ms, plain ms, library ms, bound ms, bound by, kernel TOPS)
+    of ``a @ b``."""
+    (m, k), n = a.shape, b.shape[1]
+    ms = time_ms(lambda: K.mm(a, b), reps=reps)
+    pms = time_ms(lambda: plain(a, b), reps=plain_reps, warmup=1)
+    lms = time_ms(library, reps=reps)
+    bms, by = _mm_bound(m, k, n, a.dtype)
+    return ms, pms, lms, bms, by, 2.0 * m * k * n / ms / 1e9
+
+
+def phase_probe(kernels):
+    """Row 7, the int8 matmul probe's kernel (``csrc/matmul.cu``).
+    ``tools/probe_int8_dot.py`` at its default 1024^3 (the probe's main
+    path, its launches counted); then the kernel against its plain version
+    (``ops/matmul.py::mm_plain``): at 1024^3 s8 bitwise, bf16 bitwise on
+    the probe's integer values and within 2^-20 sum|a_ik b_kj| on normal
+    values; on edge shapes (ragged tiles, unaligned K and N, K tails) s8
+    and bf16 bitwise on integer values; a product whose int32 sums wrap,
+    bitwise. Times, bounds and TOPS of kernel, plain version and library
+    (``torch._int_mm``, ``torch.matmul``) at 1024^3, then s8 at the int8
+    chain's largest GEMM: bitwise ``torch._int_mm`` over the whole
+    product and the plain version on its first rows, the same times."""
+    from frcnn_tpu_torch.ops import matmul_kernel as K
+    from frcnn_tpu_torch.ops.matmul import mm_plain
+    from frcnn_tpu_torch.tools import probe_int8_dot as P
+
+    _f32()
+    t = time.perf_counter()
+    n = 1024
+    lines, launches = _tool("probe_int8_dot", P.main,
+                            [str(n)] * 3 + [str(PROBE_ITERS)], "probe")
+    rec = json.loads(lines[0])
+    if not (rec["builds"] and rec["exact"] and rec["exact_bf16"]) or \
+            set(launches) != {"mm"}:
+        raise AssertionError(f"probe: {rec}, launches {launches}")
+    log("probe", f"probe_int8_dot {n}^3 x {PROBE_ITERS}: s8 and bf16 exact, "
+        f"{launches['mm']} launches", t)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def ints(shape, hi, dtype=torch.int8):
+        return torch.randint(-hi, hi + 1, shape, device="cuda",
+                             generator=gen, dtype=torch.int8).to(dtype)
+
+    a8, b8, abf, bbf = P.operands(n, n, n, "cuda")
+    _mm_check(K, mm_plain, a8, b8, "s8 1024^3")
+    _mm_check(K, mm_plain, abf, bbf, "bf16 1024^3, integer values")
+    an = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    bn = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    err_bf = _mm_check(
+        K, mm_plain, an, bn, "bf16 1024^3, normal values",
+        lambda a, b: 2.0 ** -20 * (a.float().abs() @ b.float().abs()))
+    for m, k, nn in PROBE_EDGES:
+        _mm_check(K, mm_plain, ints((m, k), 127), ints((k, nn), 127),
+                  f"s8 {m}x{k}x{nn}")
+        # |values| <= 15: every partial sum below 2^24 up to K = 74,565
+        _mm_check(K, mm_plain, ints((m, k), 15, torch.bfloat16),
+                  ints((k, nn), 15, torch.bfloat16), f"bf16 {m}x{k}x{nn}")
+    m, k, nn = PROBE_WRAP
+    aw = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    bw = ints((k, nn), 127)
+    bw[:, 0] = 127
+    bw[:, 1] = -127
+    _mm_check(K, mm_plain, aw, bw, f"s8 {m}x{k}x{nn} (int32 sums wrap)")
+    wrapped = int(((aw[:1].double() @ bw.double()).abs() >= 2 ** 31).sum())
+    if wrapped < 2:
+        raise AssertionError("probe: the wrap case does not wrap")
+    log("probe", f"mm == plain: s8 bitwise, bf16 bitwise on integer values "
+        f"and within 2^-20 sum|ab| on normal values (max abs err "
+        f"{err_bf:.3g}) at 1024^3; s8 and bf16 bitwise at "
+        f"{len(PROBE_EDGES)} edge shapes {PROBE_EDGES}; s8 bitwise at "
+        f"{PROBE_WRAP} with {wrapped} of {nn} int32 sums past 2^31", t)
+
+    t = time.perf_counter()
+    res = {}
+    for dt, a, b, lib, lib_name in (
+            (torch.int8, a8, b8, lambda: torch._int_mm(a8, b8), "_int_mm"),
+            (torch.bfloat16, abf, bbf, lambda: torch.matmul(abf, bbf),
+             "matmul (bf16 out)")):
+        ms, pms, lms, bms, by, tops = _mm_times(K, mm_plain, a, b, lib)
+        res[dt] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
+                   "bound_ms": bms, "bound_by": by, "tops": tops}
+        log("probe", f"mm {str(dt)[6:]} {n}^3: kernel {ms:.4f} ms "
+            f"({tops:.1f} TOPS), plain {pms:.4f} ms, torch.{lib_name} "
+            f"{lms:.4f} ms ({2.0 * n ** 3 / lms / 1e9:.1f} TOPS), bound "
+            f"{bms:.5f} ms ({by})", t)
+    del a8, b8, abf, bbf, an, bn
+
+    t = time.perf_counter()
+    m, k, nn = PROBE_CHAIN
+    a, b = ints((m, k), 127), ints((k, nn), 127)
+    got = K.mm(a, b)
+    if not torch.equal(got, torch._int_mm(a, b)):
+        raise AssertionError(f"probe: s8 {PROBE_CHAIN} differs from "
+                             f"torch._int_mm")
+    if not torch.equal(got[:PROBE_PLAIN_ROWS],
+                       mm_plain(a[:PROBE_PLAIN_ROWS], b)):
+        raise AssertionError(f"probe: s8 {PROBE_CHAIN} differs from the "
+                             f"plain version")
+    del got
+    ms, pms, lms, bms, by, tops = _mm_times(
+        K, mm_plain, a, b, lambda: torch._int_mm(a, b), plain_reps=3)
+    # the int8 chain calls torch._int_mm(cols, wmat.t()): B K-contiguous
+    bk = b.t().contiguous().t()
+    if not torch.equal(torch._int_mm(a, bk), torch._int_mm(a, b)):
+        raise AssertionError("probe: torch._int_mm differs by B's layout")
+    kms = time_ms(lambda: torch._int_mm(a, bk))
+    ops = 2.0 * m * k * nn
+    chain = {"shape": list(PROBE_CHAIN), "ms": ms, "plain_ms": pms,
+             "library_ms": lms, "bound_ms": bms, "bound_by": by,
+             "tops": tops, "library_tops": ops / lms / 1e9,
+             "library_ms_b_kmajor": kms, "library_tops_b_kmajor":
+             ops / kms / 1e9}
+    log("probe", f"mm s8 {m}x{k}x{nn} (block 1's second conv at B={B}, "
+        f"450x800): == torch._int_mm over the whole product, == plain on "
+        f"the first {PROBE_PLAIN_ROWS} rows; kernel {ms:.4f} ms "
+        f"({tops:.1f} TOPS), torch._int_mm {lms:.4f} ms "
+        f"({chain['library_tops']:.1f} TOPS; {kms:.4f} ms, "
+        f"{ops / kms / 1e9:.1f} TOPS with B K-contiguous, as the int8 "
+        f"chain calls it), plain {pms:.3f} ms, bound {bms:.4f} ms ({by})", t)
+    del a, b, bk
+    torch.cuda.empty_cache()
+    kernels["mm"] = {"launches": launches["mm"], "max_abs_err": 0.0,
+                     **res[torch.int8],
+                     "bf16": {**res[torch.bfloat16],
+                              "max_abs_err_normal": err_bf},
+                     "chain": chain}
+
+
+# -- the micro-benchmarks ------------------------------------------------------------
+
+MICRO_ITERS = 5
+MICRO_BLOCK0_B = 2
+
+
+def phase_micro(kernels):
+    """``tools/bench_block0.py`` (B=2, every variant, then ``normparts``),
+    ``tools/bench_pool_bwd.py`` and ``tools/bench_scan.py`` through their
+    ``main`` at 5 iterations, their lines printed; the block0 kernel's and
+    the pool backward kernel's launches in them."""
+    from frcnn_tpu_torch.tools import bench_block0, bench_pool_bwd, bench_scan
+
+    t = time.perf_counter()
+    n = str(MICRO_ITERS)
+    _, b0 = _tool("bench_block0", bench_block0.main,
+                  [str(MICRO_BLOCK0_B), n, *bench_block0.VARIANTS], "micro")
+    _tool("bench_block0 normparts", bench_block0.main,
+          ["normparts", str(MICRO_BLOCK0_B), n], "micro")
+    _, pb = _tool("bench_pool_bwd", bench_pool_bwd.main, [n], "micro")
+    _tool("bench_scan", bench_scan.main, [n], "micro")
+    if set(b0) != {"fused_block0"} or set(pb) != {"pool_bwd"}:
+        raise AssertionError(f"micro: launches {b0} (bench_block0), {pb} "
+                             f"(bench_pool_bwd)")
+    kernels["fused_block0"]["launches_micro"] = b0["fused_block0"]
+    kernels["pool_bwd"]["launches_micro"] = pb["pool_bwd"]
+    log("micro", f"bench_block0 B={MICRO_BLOCK0_B} (all variants, "
+        f"normparts), bench_pool_bwd, bench_scan at {MICRO_ITERS} "
+        f"iterations; launches {b0} and {pb}", t)
+
+
 # -- the accuracy tools ------------------------------------------------------------
 
 ACC_IMAGES = 24      # a quarter of them the validation split
 TINY_STEPS = 160
+PHOTO_SCENES = 8     # imagenet_smoke photo scenes read back
+PHOTO_STEPS = 8      # train_synthetic_eval --scale imagenet_smoke
 
 
-def _tool(name: str, main, argv):
-    """One in-process run of a tool's ``main`` on the card, its output
-    lines printed under ``[accuracy]``; returns (lines, launches)."""
+def _tool(name: str, main, argv, phase: str = "accuracy"):
+    """One in-process run of a tool's ``main`` on the card, the launch
+    counts set to 0 just before it, its output lines printed under
+    ``[phase]``; returns (lines, launches)."""
     _zero_launches()
     buf = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
     torch.cuda.synchronize()
-    if rc != 0:
-        raise AssertionError(f"accuracy: {name} returned {rc}")
+    launches = _launches()
     lines = buf.getvalue().splitlines()
     for ln in lines:
-        print(f"[accuracy] {name}: {ln}", flush=True)
-    launches = _launches()
-    print(f"[accuracy] {name}: {time.perf_counter() - t:.2f} s wall; "
+        print(f"[{phase}] {name}: {ln}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{phase}: {name} returned {rc}")
+    print(f"[{phase}] {name}: {time.perf_counter() - t:.2f} s wall; "
           f"launches {launches}", flush=True)
     return lines, launches
 
@@ -3234,6 +3462,66 @@ def phase_accuracy(root: Path, device: str = "cuda"):
         f"steps: mAP {result['mAP']:.4f} over {result['num_images']} "
         f"images, loss {result['first_loss_mean_25']:.4f} -> "
         f"{result['final_loss_mean_last25']:.4f}", t)
+    _photo_scenes(root / "photo")
+
+    t = time.perf_counter()
+    run = root / "imagenet_smoke"
+    _tool("train_synthetic_eval", train_synthetic_eval.main,
+          ["--scale", "imagenet_smoke", "--steps", str(PHOTO_STEPS),
+           "--images", str(PHOTO_SCENES), "--out", str(run), "--chunk",
+           "4", "--eval-count", "2", "--demo-count", "1", "--device",
+           device])
+    result = json.loads((run / "result.json").read_text())
+    if result["steps"] != PHOTO_STEPS or not np.isfinite(
+            result["final_loss_mean_last25"]):
+        raise AssertionError(f"train_synthetic_eval: {result}")
+    log("accuracy", f"train_synthetic_eval --scale imagenet_smoke (vgg_large"
+        f", photo scenes, both buckets), {PHOTO_STEPS} steps: mAP "
+        f"{result['mAP']:.4f} over {result['num_images']} images, loss "
+        f"{result['first_loss_mean_25']:.4f} -> "
+        f"{result['final_loss_mean_last25']:.4f}", t)
+
+
+def _photo_scenes(root: Path):
+    """imagenet_smoke photo scenes (mixed orientation, seed 0) written
+    and read back through a ``BatchIterator``: every file of the CSV but
+    the corrupt ones decoded into one of the two buckets (both seen), the
+    corrupt ones skipped and logged."""
+    from frcnn_tpu_torch.data.importers import create_duplo_manifest
+    from frcnn_tpu_torch.data.pipeline import BatchIterator
+    from frcnn_tpu_torch.tools import train_synthetic_eval as TSE
+
+    t = time.perf_counter()
+    w, h, lo, hi, n_cls, cfg_fn, maker = TSE.scale_spec("imagenet_smoke")
+    csv = maker(str(root), PHOTO_SCENES, w, h, n_cls, lo, hi, seed=0)
+    gen_s = time.perf_counter() - t
+    # every file of the CSV in the validation split
+    manifest = create_duplo_manifest("photo", csv, None,
+                                     validation_size=PHOTO_SCENES, seed=0)
+    names = manifest["validation_set"]
+    corrupt = [n for n in names
+               if (root / n).read_bytes() == TSE.CORRUPT_BYTES]
+    cfg = cfg_fn(n_cls).replace(examples_base_path=str(root))
+    capture = _LogCapture()
+    logging.getLogger("frcnn_tpu_torch.data").addHandler(capture)
+    try:
+        items = BatchIterator(cfg, manifest, seed=0).next_validation(
+            len(names) - len(corrupt))
+    finally:
+        logging.getLogger("frcnn_tpu_torch.data").removeHandler(capture)
+    shapes = sorted({it["image"].shape for it in items})
+    buckets = {cfg.shapes.bucket_for(*sh[:2]) for sh in shapes}
+    skipped = [m for m in capture.messages if "Invalid image" in m]
+    if len(items) != len(names) - len(corrupt) or len(buckets) != 2 or \
+            len(skipped) != len(corrupt) or not corrupt:
+        raise AssertionError(f"accuracy: photo scenes {len(names)} in the "
+                             f"CSV, {len(corrupt)} corrupt, {len(items)} "
+                             f"read, shapes {shapes}, logged {skipped}")
+    log("accuracy", f"{PHOTO_SCENES} imagenet_smoke photo scenes of {w}x{h} "
+        f"(mixed orientation) written in {gen_s:.2f} s; {len(names)} in the "
+        f"CSV read back through BatchIterator: {len(items)} decoded "
+        f"({shapes}, buckets {sorted(buckets)}), {len(corrupt)} corrupt "
+        f"skipped and logged ({skipped[0]!r})", t)
 
 
 def main() -> int:
@@ -3242,6 +3530,7 @@ def main() -> int:
     phase_build()
     kernels, two_conv = phase_kernels()
     kernels.update(phase_kernels_int8(two_conv))
+    phase_probe(kernels)
     phase_detect(kernels)
     phase_detect_large(kernels)
     phase_detect_int8(kernels)
@@ -3255,6 +3544,7 @@ def main() -> int:
     phase_entry(kernels)
     phase_bench(kernels)
     phase_profile_stages()
+    phase_micro(kernels)
     with tempfile.TemporaryDirectory() as tmp:
         phase_accuracy(Path(tmp))
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
@@ -3270,7 +3560,8 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "device_ms": r.get("device_ms")})
-        for extra in ("device_ms_train_step", "device_ms_large",
+        for extra in ("tops", "bf16", "chain", "launches_micro",
+                      "device_ms_train_step", "device_ms_large",
                       "launches_data", "launches_train_large",
                       "device_ms_train_large", "launches_cli",
                       "launches_dryrun_real", "launches_bench"):

@@ -85,8 +85,8 @@ def read_rgb(path: str, use_native: Optional[bool] = None) -> np.ndarray:
     """Decode ``path`` to uint8 RGB [h, w, 3]. ``use_native`` (default:
     where the library is available) picks the native decoder; False
     forces the numpy PNG reader. Raises ``ValueError`` for a file that
-    does not decode, and ``RuntimeError`` for a JPEG without the
-    library."""
+    does not decode (a JPEG stream whose header holds no frame size
+    included), and ``RuntimeError`` for a JPEG without the library."""
     if use_native is None:
         use_native = native.available()
     if use_native:
@@ -96,6 +96,7 @@ def read_rgb(path: str, use_native: Optional[bool] = None) -> np.ndarray:
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
     if data[:2] == b"\xff\xd8":
+        image_size(path)        # a corrupt header is the file's fault
         raise RuntimeError(
             f"{path}: JPEG needs the native host library, which is not "
             f"available: {native.build_error()}")
@@ -239,3 +240,177 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
                 + chunk(b"IEND", b""))
+
+
+# -- the JPEG round trip (in memory) ------------------------------------------
+
+# the IJG example quantization tables (JPEG Annex K), natural order
+_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+], np.int64).reshape(8, 8)
+_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+], np.int64).reshape(8, 8)
+# libjpeg's integer DCTs (jfdctint.c, jidctint.c): 13 fraction bits in the
+# constants, 2 more bits kept between the passes
+_CONST_BITS, _PASS1_BITS = 13, 2
+_F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
+_F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
+_F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
+
+
+def _descale(x, n: int):
+    """libjpeg's DESCALE: x / 2^n rounded half up (an arithmetic shift)."""
+    return (x + (1 << (n - 1))) >> n
+
+
+def _odd_rotation(t4, t5, t6, t7):
+    """The shared odd part of the integer DCTs: (t4', t5', t6', t7')."""
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * _F1175
+    z1, z2 = -z1 * _F0899, -z2 * _F2562
+    z3, z4 = -z3 * _F1961 + z5, -z4 * _F0390 + z5
+    return (t4 * _F0298 + z1 + z3, t5 * _F2053 + z2 + z4,
+            t6 * _F3072 + z2 + z3, t7 * _F1501 + z1 + z4)
+
+
+def _fdct_pass(d, axis: int, last: bool):
+    """One pass of ``jpeg_fdct_islow`` along ``axis`` (length 8)."""
+    g = [np.take(d, i, axis=axis) for i in range(8)]
+    t0, t7, t1, t6 = g[0] + g[7], g[0] - g[7], g[1] + g[6], g[1] - g[6]
+    t2, t5, t3, t4 = g[2] + g[5], g[2] - g[5], g[3] + g[4], g[3] - g[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    n = _CONST_BITS + _PASS1_BITS if last else _CONST_BITS - _PASS1_BITS
+    z1 = (t12 + t13) * _F0541
+    o4, o5, o6, o7 = _odd_rotation(t4, t5, t6, t7)
+    even = ((lambda v: _descale(v, _PASS1_BITS)) if last
+            else (lambda v: v << _PASS1_BITS))
+    out = [even(t10 + t11), o7, z1 + t13 * _F0765, o6, even(t10 - t11), o5,
+           z1 - t12 * _F1847, o4]
+    return np.stack([v if i in (0, 4) else _descale(v, n)
+                     for i, v in enumerate(out)], axis=axis)
+
+
+def _idct_pass(d, axis: int, last: bool):
+    """One pass of ``jpeg_idct_islow`` along ``axis`` (length 8)."""
+    g = [np.take(d, i, axis=axis) for i in range(8)]
+    z1 = (g[2] + g[6]) * _F0541
+    tmp2, tmp3 = z1 - g[6] * _F1847, z1 + g[2] * _F0765
+    tmp0, tmp1 = (g[0] + g[4]) << _CONST_BITS, (g[0] - g[4]) << _CONST_BITS
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = _odd_rotation(g[7], g[5], g[3], g[1])
+    n = _CONST_BITS + _PASS1_BITS + 3 if last else _CONST_BITS - _PASS1_BITS
+    out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1,
+           t11 - o2, t10 - o3]
+    return np.stack([_descale(v, n) for v in out], axis=axis)
+
+
+def _fix(x: float) -> int:
+    """libjpeg's FIX(x) at 16 fraction bits."""
+    return int(x * 65536 + 0.5)
+
+
+def quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """``jpeg_set_quality(quality, force_baseline=TRUE)``'s table: the
+    base table scaled by the quality, rounded, within [1, 255]."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _rgb_to_ycc(p: np.ndarray):
+    """libjpeg's fixed-point RGB -> YCbCr (``jccolor.c``) of int64 RGB."""
+    r, g, b = p[..., 0], p[..., 1], p[..., 2]
+    half, off = 1 << 15, 128 << 16
+    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + half) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + off
+          + half - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + off
+          + half - 1) >> 16
+    return y, cb, cr
+
+
+def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """libjpeg's fixed-point YCbCr -> RGB (``jdcolor.c``), clipped."""
+    half = 1 << 15
+    cb, cr = cb - 128, cr - 128
+    r = y + ((_fix(1.402) * cr + half) >> 16)
+    g = y + ((-_fix(0.34414) * cb + half - _fix(0.71414) * cr) >> 16)
+    b = y + ((_fix(1.772) * cb + half) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _dct_roundtrip(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Each 8x8 block of the int64 plane (sides multiples of 8) as libjpeg
+    codes and decodes it: level shift, the integer forward DCT (rows, then
+    columns; the coefficients come out 8x the JPEG ones), quantization by
+    8q rounded half away from zero, dequantization, the integer inverse
+    DCT (columns, then rows), +128 and the clip to [0, 255]."""
+    h, w = plane.shape
+    b = (plane - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    coef = _fdct_pass(_fdct_pass(b, -1, False), -2, True)
+    d = 8 * q
+    qc = np.where(coef < 0, -((d // 2 - coef) // d), (coef + d // 2) // d)
+    rec = _idct_pass(_idct_pass(qc * q, -2, False), -1, True)
+    return np.clip(rec + 128, 0, 255).transpose(0, 2, 1, 3).reshape(h, w)
+
+
+def _fancy_upsample(c: np.ndarray) -> np.ndarray:
+    """libjpeg's h2v2 "fancy" upsampling (``jdsample.c``): each output
+    pixel 9/16, 3/16, 3/16, 1/16 of its four nearest samples, edge samples
+    repeated, with the library's biases (8 and 7)."""
+    up = np.concatenate([c[:1], c[:-1]], 0)
+    down = np.concatenate([c[1:], c[-1:]], 0)
+    out = np.empty((2 * c.shape[0], 2 * c.shape[1]), np.int64)
+    for v, near in ((0, up), (1, down)):
+        s = 3 * c + near                          # the column sums
+        left = np.concatenate([s[:, :1], s[:, :-1]], 1)
+        right = np.concatenate([s[:, 1:], s[:, -1:]], 1)
+        out[v::2, 0::2] = (3 * s + left + 8) >> 4
+        out[v::2, 1::2] = (3 * s + right + 7) >> 4
+    return out
+
+
+def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
+    """uint8 RGB [h, w, 3] as a baseline JPEG of ``quality`` decodes: what
+    PIL's ``save(quality=q)`` and then ``open`` give (libjpeg's defaults:
+    YCbCr, 4:2:0 chroma, the IJG tables scaled by the quality, the integer
+    DCTs, fancy upsampling), in memory, without a JPEG library. The
+    encoder's edges: columns repeated at full resolution to the MCU width
+    of 16, rows repeated to an even count, each plane's rows then repeated
+    to a multiple of 8 (libjpeg pads the downsampled planes, not the
+    image). Chroma is box-downsampled with libjpeg's alternating rounding
+    bias; the color conversions are its fixed-point ones. It equals
+    PIL's round trip bitwise on the photographs of ``tools/photos`` and on
+    random images (``tests/test_torch_accuracy_tools.py``): this follows
+    libjpeg's C code, which its SIMD paths match bit for bit."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"jpeg_roundtrip takes uint8 [h, w, 3], not "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    p = np.pad(img, ((0, h % 2), (0, -w % 16), (0, 0)), mode="edge")
+    y, cb, cr = _rgb_to_ycc(p.astype(np.int64))
+    bias = np.where(np.arange(p.shape[1] // 2) % 2 == 0, 1, 2)
+
+    def down(c):                     # h2v2: 2x2 sums, bias 1, 2, 1, 2, ...
+        s = c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2]
+        return (s + bias) >> 2
+
+    def pad8(c):
+        return np.pad(c, ((0, -c.shape[0] % 8), (0, -c.shape[1] % 8)),
+                      mode="edge")
+
+    lq = quant_table(_LUMA_Q, quality)
+    cq = quant_table(_CHROMA_Q, quality)
+    y = _dct_roundtrip(pad8(y), lq)[:h, :w]
+    hc, wc = -(-h // 2), -(-w // 2)
+    cb, cr = (_fancy_upsample(_dct_roundtrip(pad8(down(c)), cq)[:hc, :wc])
+              [:h, :w] for c in (cb, cr))
+    return _ycc_to_rgb(y, cb, cr)

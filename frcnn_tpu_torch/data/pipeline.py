@@ -136,6 +136,86 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return acc.astype(np.float32)
 
 
+def _resample_axis_u8(img: np.ndarray, out_size: int, axis: int):
+    """One pass of Pillow's 8-bit resampling (``ImagingResample*_8bpc``)
+    along ``axis`` of uint8 ``img``: the taps in fixed point with 22
+    fraction bits (rounded away from zero), an integer sum from one half,
+    shifted and clipped to uint8."""
+    n = img.shape[axis]
+    if n == out_size:
+        return img
+    first, k = _bilinear_coeffs(n, out_size)
+    kk = np.trunc(k * (1 << 22) + np.where(k < 0, -0.5, 0.5)).astype(
+        np.int64)
+    k_shape = [1] * img.ndim
+    k_shape[axis] = out_size
+    acc = np.full([out_size if d == axis else s
+                   for d, s in enumerate(img.shape)], 1 << 21, np.int64)
+    for t in range(kk.shape[1]):
+        src = np.take(img, np.minimum(first + t, n - 1), axis=axis)
+        acc += src.astype(np.int64) * kk[:, t].reshape(k_shape)
+    return np.clip(acc >> 22, 0, 255).astype(np.uint8)
+
+
+def resize_uint8(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """Bilinear resize of uint8 [h, w, C] as Pillow's ``Image.resize(
+    BILINEAR)`` computes it on a uint8 image: the taps of
+    :func:`resize_image`, in fixed point, rounded to uint8 after each
+    pass (horizontal first)."""
+    img = np.asarray(img, np.uint8)
+    return _resample_axis_u8(_resample_axis_u8(img, max(1, int(new_w)), 1),
+                             max(1, int(new_h)), 0)
+
+
+def _box_blur_radius(radius: float, passes: int) -> np.float32:
+    """Pillow's ``_gaussian_blur_radius``: the extended box radius whose
+    ``passes`` box blurs have the variance of a Gaussian of standard
+    deviation ``radius`` (float32 arithmetic, two steps in double)."""
+    f = np.float32
+    sigma2 = f(f(radius) * f(radius)) / f(passes)
+    big_l = f(np.sqrt(12.0 * float(sigma2) + 1.0))
+    small_l = f(np.floor((float(big_l) - 1.0) / 2.0))
+    a = (f(2) * small_l + f(1)) * (small_l * (small_l + f(1))
+                                   - f(3) * sigma2)
+    a = a / (f(6) * (sigma2 - (small_l + f(1)) * (small_l + f(1))))
+    return small_l + a
+
+
+def _box_blur_pass(img: np.ndarray, radius: np.float32, axis: int):
+    """One pass of Pillow's extended box blur (``ImagingLineBoxBlur``) of
+    uint8 ``img`` along ``axis``: 2r + 1 taps of weight ww and the two next
+    ones of weight fw in 24-bit fixed point, edge pixels repeated, rounded
+    to uint8."""
+    r = int(radius)
+    ww = int(np.float32(1 << 24) / (radius * np.float32(2) + np.float32(1)))
+    fw = ((1 << 24) - (2 * r + 1) * ww) // 2
+    n = img.shape[axis]
+    pad = [(0, 0)] * img.ndim
+    pad[axis] = (r + 1, r + 1)
+    p = np.pad(img.astype(np.int64), pad, mode="edge")
+    c = np.cumsum(p, axis=axis)
+    hi = np.take(c, np.arange(2 * r + 1, 2 * r + 1 + n), axis=axis)
+    lo = np.take(c, np.arange(n), axis=axis)
+    far = (np.take(p, np.arange(n), axis=axis)
+           + np.take(p, np.arange(2 * r + 2, 2 * r + 2 + n), axis=axis))
+    bulk = (hi - lo) * ww + far * fw
+    return ((bulk + (1 << 23)) >> 24).astype(np.uint8)
+
+
+def gaussian_blur(img: np.ndarray, radius: float):
+    """uint8 [h, w, C] blurred as Pillow's ``ImageFilter.GaussianBlur(
+    radius)`` blurs it: three extended box blurs along the rows, then three
+    along the columns, each rounded to uint8."""
+    img = np.asarray(img, np.uint8)
+    if radius == 0:
+        return img.copy()
+    fr = _box_blur_radius(radius, 3)
+    for axis in (1, 0):
+        for _ in range(3):
+            img = _box_blur_pass(img, fr, axis)
+    return img
+
+
 def resize_image(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     """Bilinear resize (image.scale default) of float32 [h, w, C]: what
     Pillow's ``Image.resize(BILINEAR)`` computes on each channel in mode

@@ -6,6 +6,9 @@ of ``scripts/train_synthetic_eval.py``).
         --steps 400 --out RUN [--device cuda|cpu]
     python -m frcnn_tpu_torch.tools.train_synthetic_eval --scale duplo \\
         --steps 1500 --out RUN        # vgg_small at 800x450
+    python -m frcnn_tpu_torch.tools.train_synthetic_eval --scale photo \\
+        --out RUN     # photo backgrounds; also imagenet (vgg_large, both
+                      # buckets) and imagenet_smoke (the same cut 3x)
 
 Outputs in RUN (the JAX script's layout, which ``eval_quant_parity``,
 ``sweep_conf_gate`` and ``recall_attribution`` read): ``dataset/`` (PNG
@@ -21,11 +24,21 @@ backward, NMS; their plain versions on the CPU), where the JAX script's
 XLA path needs none: on the card the plain ROI-pool backward alone takes
 about a second per step.
 
-Only the ``tiny`` and ``duplo`` scales are ported. ``photo``,
-``imagenet`` and ``imagenet_smoke`` composite photographs taken from the
-sample data of matplotlib, scikit-learn or pygame and encode JPEG
-(``make_photo_dataset``); the port has neither those photographs nor a
-JPEG encoder, so those scales raise ``ValueError``.
+The ``photo``, ``imagenet`` and ``imagenet_smoke`` scales composite
+shaded bricks over crops of real photographs (``make_photo_dataset``):
+the three of ``tools/photos/`` (``SOURCES.md``: matplotlib's and
+scikit-learn's sample photographs, in the JAX script's order; the JAX
+script also finds pygame's where pygame is installed). The numpy draws are
+the JAX function's, in its order, so boxes and CSV rows are equal; PIL's
+steps are numpy ones, each bitwise PIL's: the crop's resize is Pillow's
+8-bit bilinear (``data/pipeline.py::resize_uint8``), the blur its
+box-blur Gaussian (``gaussian_blur``), and the JPEG save and load
+``data/codec.py::jpeg_roundtrip`` in memory (libjpeg's color conversion,
+4:2:0 sampling, quantization tables and integer DCTs), after which the
+scene is written as a lossless PNG. So the files are ``img{i}.png`` where
+the JAX script writes ``.jpg``, with the same pixels as PIL reads from
+those, compression artefacts included.
+The first ``n_corrupt`` files hold the JAX script's corrupt bytes.
 """
 
 from __future__ import annotations
@@ -44,7 +57,11 @@ CLASS_COLORS = [
     (230, 230, 40), (230, 40, 230), (40, 230, 230),
 ]
 CLASS_NAMES = ["Red", "Green", "Blue", "Yellow", "Magenta", "Cyan"]
-NOT_PORTED = ("photo", "imagenet", "imagenet_smoke")
+PHOTO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "photos")
+# sorted by their source paths (matplotlib's, then scikit-learn's)
+PHOTOS = ("grace_hopper.png", "china.png", "flower.png")
+CORRUPT_BYTES = b"\xff\xd8\xffnot-actually-a-jpeg"
 
 
 def _skip_if_generated(out_dir: str, meta: dict):
@@ -122,6 +139,153 @@ def make_dataset(out_dir: str, n_images: int, img_w: int, img_h: int,
     return csv
 
 
+def _bundled_photos():
+    """The background photographs of ``tools/photos/`` as RGB uint8
+    arrays, in the JAX ``_bundled_photos``'s order."""
+    from frcnn_tpu_torch.data.codec import read_rgb
+
+    return [read_rgb(os.path.join(PHOTO_DIR, n), use_native=False)
+            for n in PHOTOS]
+
+
+def _draw_brick(img, rng, x0, y0, bw, bh, color):
+    """Composite one shaded toy-brick onto ``img`` in place: drop shadow,
+    directional-gradient body, lighter top face, studs, sensor noise
+    (``scripts/train_synthetic_eval.py::_draw_brick``, the same draws)."""
+    h, w = img.shape[:2]
+    sx0, sy0 = min(x0 + 6, w), min(y0 + 7, h)
+    sx1, sy1 = min(x0 + bw + 9, w), min(y0 + bh + 10, h)
+    if sx1 > sx0 and sy1 > sy0:
+        sh = img[sy0:sy1, sx0:sx1].astype(np.float32)
+        img[sy0:sy1, sx0:sx1] = (sh * 0.62).astype(np.uint8)
+    body = np.broadcast_to(
+        np.asarray(color, np.float32), (bh, bw, 3)).copy()
+    yy, xx = np.mgrid[0:bh, 0:bw].astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi)
+    g = (np.cos(ang) * xx / max(bw, 1) + np.sin(ang) * yy / max(bh, 1))
+    g = (g - g.min()) / max(g.max() - g.min(), 1e-6)
+    body *= (0.62 + 0.43 * g)[:, :, None]
+    top_h = max(2, int(bh * rng.uniform(0.12, 0.22)))
+    body[:top_h] = np.minimum(body[:top_h] * 1.45 + 18, 255)
+    n_studs = max(1, bw // 44)
+    r = max(2, int(min(bw, bh) * 0.10))
+    cy = top_h // 2
+    for k in range(n_studs):
+        cx = int((k + 0.5) * bw / n_studs)
+        y_lo, y_hi = max(cy - r, 0), min(cy + r, bh)
+        x_lo, x_hi = max(cx - r, 0), min(cx + r, bw)
+        if y_hi > y_lo and x_hi > x_lo:
+            dy = np.arange(y_lo, y_hi)[:, None] - cy
+            dx = np.arange(x_lo, x_hi)[None, :] - cx
+            disk = (dy * dy + dx * dx) <= r * r
+            patch = body[y_lo:y_hi, x_lo:x_hi]
+            patch[disk] = np.minimum(patch[disk] * 1.25 + 25, 255)
+    body[0], body[-1] = body[0] * 0.55, body[-1] * 0.55
+    body[:, 0], body[:, -1] = body[:, 0] * 0.55, body[:, -1] * 0.55
+    body += rng.normal(0, 6, body.shape)
+    img[y0:y0 + bh, x0:x0 + bw] = body.clip(0, 255).astype(np.uint8)
+
+
+def make_photo_dataset(out_dir: str, n_images: int, img_w: int, img_h: int,
+                       n_classes: int, box_lo: int, box_hi: int,
+                       seed: int = 0, max_boxes: int = 4,
+                       n_corrupt: int = 2, mixed_orientation: bool = False):
+    """Photo-composited scenes (``scripts/train_synthetic_eval.py::
+    make_photo_dataset``): shaded bricks (color = class, partial
+    occlusion up to IoU 0.25) over crops of real photographs, degraded as
+    a camera would (blur, sensor noise, a JPEG round trip at a random
+    quality 55-94), written as PNG; the first ``n_corrupt`` files are
+    corrupt and stay in the CSV (the batch iterator skips and logs them).
+    ``mixed_orientation`` swaps width and height for about half the scenes
+    (both imagenet buckets). Without photographs (:func:`_bundled_photos`
+    empty) the backgrounds are the JAX function's textured fallback.
+    Returns the CSV path."""
+    from frcnn_tpu_torch.data.codec import jpeg_roundtrip, write_png
+    from frcnn_tpu_torch.data.pipeline import gaussian_blur, resize_uint8
+
+    meta = dict(kind="photo", n_images=n_images, img_w=img_w, img_h=img_h,
+                n_classes=n_classes, box_lo=box_lo, box_hi=box_hi,
+                seed=seed, max_boxes=max_boxes, n_corrupt=n_corrupt,
+                mixed_orientation=mixed_orientation)
+    done = _skip_if_generated(out_dir, meta)
+    if done:
+        return done
+    backgrounds = _bundled_photos()
+    rng = np.random.default_rng(seed)
+    rows = []
+    os.makedirs(out_dir, exist_ok=True)
+    base_wh = (img_w, img_h)
+    for i in range(n_images):
+        if mixed_orientation:
+            img_w, img_h = base_wh if rng.random() < 0.5 else base_wh[::-1]
+        if backgrounds:
+            bg = backgrounds[int(rng.integers(0, len(backgrounds)))]
+            bh0, bw0 = bg.shape[:2]
+            # random crop with the target aspect, then resize
+            frac = rng.uniform(0.5, 1.0)
+            cw = max(int(bw0 * frac), 64)
+            ch = max(min(int(cw * img_h / img_w), bh0), 48)
+            cw = min(int(ch * img_w / img_h), bw0)
+            cx = int(rng.integers(0, bw0 - cw + 1))
+            cy = int(rng.integers(0, bh0 - ch + 1))
+            img = resize_uint8(bg[cy:cy + ch, cx:cx + cw], img_w,
+                               img_h).astype(np.float32)
+            if rng.random() < 0.5:
+                img = img[:, ::-1]
+            img *= rng.uniform(0.55, 1.05)        # global illumination
+            img += rng.normal(0, 10, 3)           # color cast
+            img = img.clip(0, 255).astype(np.uint8)
+        else:       # no photographs: the textured fallback
+            base = rng.integers(30, 120, size=(img_h // 8, img_w // 8, 3))
+            img = resize_uint8(base.astype(np.uint8), img_w, img_h)
+        placed = []
+        for _ in range(int(rng.integers(1, max_boxes + 1))):
+            ci = int(rng.integers(0, n_classes))
+            bw = int(rng.integers(box_lo, box_hi))
+            bh = int(rng.integers(box_lo, box_hi))
+            for _try in range(20):
+                x0 = int(rng.integers(0, img_w - bw))
+                y0 = int(rng.integers(0, img_h - bh))
+                cand = (x0, y0, x0 + bw, y0 + bh)
+                # partial occlusion allowed: reject only IoU >= 0.25
+                ok = True
+                for p in placed:
+                    ix = max(0, min(cand[2], p[2]) - max(cand[0], p[0]))
+                    iy = max(0, min(cand[3], p[3]) - max(cand[1], p[1]))
+                    inter = ix * iy
+                    union = bw * bh + (p[2] - p[0]) * (p[3] - p[1]) - inter
+                    if inter / union >= 0.25:
+                        ok = False
+                        break
+                if ok:
+                    break
+            else:
+                continue
+            placed.append(cand)
+            _draw_brick(img, rng, x0, y0, bw, bh, CLASS_COLORS[ci])
+            rows.append(
+                f'"img{i:04d}.png", {x0}, {y0}, {x0 + bw}, {y0 + bh}, '
+                f'"{CLASS_NAMES[ci]}", {ci}, "M", 0'
+            )
+        # camera-pipeline degradation
+        blur = rng.uniform(0.0, 1.0)
+        if blur > 0.25:
+            img = gaussian_blur(img, blur)
+        img = img.astype(np.float32)
+        img += rng.normal(0, rng.uniform(1.0, 5.0), img.shape)
+        write_png(os.path.join(out_dir, f"img{i:04d}.png"), jpeg_roundtrip(
+            img.clip(0, 255).astype(np.uint8), int(rng.integers(55, 95))))
+    for i in range(min(n_corrupt, n_images)):
+        with open(os.path.join(out_dir, f"img{i:04d}.png"), "wb") as f:
+            f.write(CORRUPT_BYTES)
+    csv = os.path.join(out_dir, "boxes.csv")
+    with open(csv, "w") as f:
+        f.write("\n".join(rows))
+    with open(os.path.join(out_dir, "gen_meta.json"), "w") as f:
+        json.dump(meta, f)
+    return csv
+
+
 def tiny_cfg(n_classes: int):
     """``scripts/train_synthetic_eval.py::tiny_cfg``."""
     from frcnn_tpu_torch.config import (
@@ -183,24 +347,60 @@ def duplo_scale_cfg(n_classes: int):
     )
 
 
+def imagenet_scale_cfg(n_classes: int):
+    """``scripts/train_synthetic_eval.py::imagenet_scale_cfg``: the
+    reference imagenet experiment's envelope (vgg_large, 480 px smaller
+    side, the 480x1000 and 1000x480 buckets, thresholds 0.6/0.25), the
+    class count the synthetic dataset's."""
+    from frcnn_tpu_torch.config import imagenet_config
+
+    return imagenet_config(
+        class_count=n_classes, learning_rate=1e-4, uint8_wire=True)
+
+
+def _make_imagenet_dataset(out_dir, n_images, img_w, img_h, n_classes,
+                           box_lo, box_hi, seed=0):
+    return make_photo_dataset(out_dir, n_images, img_w, img_h, n_classes,
+                              box_lo, box_hi, seed=seed,
+                              mixed_orientation=True)
+
+
+def imagenet_smoke_cfg(n_classes: int):
+    """``scripts/train_synthetic_eval.py::imagenet_smoke_cfg``: the
+    imagenet scale's model family, dual buckets and thresholds, with the
+    envelope cut 3x (160x320 and 320x160, 2 images a step)."""
+    from frcnn_tpu_torch.config import imagenet_config
+
+    cfg = imagenet_config(
+        class_count=n_classes, learning_rate=1e-4, uint8_wire=True,
+        target_smaller_side=160, max_pixel_size=320,
+        scales=(24, 48, 96, 192),
+    )
+    return cfg.replace(shapes=dataclasses.replace(
+        cfg.shapes, image_hw=(160, 320), portrait_hw=(320, 160),
+        images_per_step=2))
+
+
 SCALES = {
     # (img_w, img_h, box_lo, box_hi, n_classes, cfg builder, scene maker)
     "tiny": (200, 160, 48, 80, 3, tiny_cfg, make_dataset),
     "duplo": (800, 450, 48, 220, 6, duplo_scale_cfg, make_dataset),
+    # photo backgrounds + shaded bricks + JPEG degradation, duplo's scale
+    "photo": (800, 450, 48, 220, 6, duplo_scale_cfg, make_photo_dataset),
+    # vgg_large at the imagenet envelope, portrait and landscape mixed
+    "imagenet": (1000, 480, 60, 380, 6, imagenet_scale_cfg,
+                 _make_imagenet_dataset),
+    # the imagenet scale cut 3x
+    "imagenet_smoke": (320, 160, 24, 100, 3, imagenet_smoke_cfg,
+                       _make_imagenet_dataset),
 }
 
 
 def scale_spec(name: str):
     """(img_w, img_h, box_lo, box_hi, n_classes, cfg_fn, maker) of a
-    scale; the scales that are not ported raise ``ValueError``."""
-    if name in NOT_PORTED:
-        raise ValueError(
-            f"scale {name!r} is not ported: it composites photographs from "
-            f"the sample data of matplotlib, scikit-learn or pygame and "
-            f"encodes JPEG (make_photo_dataset); the port has neither the "
-            f"photographs nor a JPEG encoder. Ported: {sorted(SCALES)}")
+    scale; an unknown name raises ``ValueError``."""
     if name not in SCALES:
-        raise ValueError(f"unknown scale {name!r}; ported: {sorted(SCALES)}")
+        raise ValueError(f"unknown scale {name!r}; known: {sorted(SCALES)}")
     return SCALES[name]
 
 
@@ -296,8 +496,7 @@ def main(argv=None) -> int:
     from frcnn_tpu_torch.utils.drawing import draw_rectangle, save_image
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", choices=[*SCALES, *NOT_PORTED],
-                    default="tiny")
+    ap.add_argument("--scale", choices=list(SCALES), default="tiny")
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--images", type=int, default=60)
     ap.add_argument("--out", required=True)

@@ -83,7 +83,7 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _seconds(fn, k: int, device) -> float:
+def seconds(fn, k: int, device) -> float:
     """Seconds of ``k`` calls of ``fn`` back to back: CUDA events on the
     card (one synchronize at the end), the host clock on the CPU."""
     if torch.device(device).type == "cuda":
@@ -101,19 +101,26 @@ def _seconds(fn, k: int, device) -> float:
     return time.perf_counter() - t
 
 
-def loop_time(fn, n: int, label: str, device, out=print) -> float:
-    """Seconds per call of ``fn`` (``scripts/profile_detect.py:51-74``):
-    a first call (kernel build, allocations), then the best of 3 trials
-    at ``1 + n // 4`` and at ``1 + n`` calls, differenced."""
+def differenced_seconds(fn, n: int, device):
+    """(seconds per call of ``fn``, seconds of the shorter run): a first
+    call (kernel build, allocations), then the best of 3 trials at
+    ``1 + n // 4`` and at ``1 + n`` calls, differenced (the JAX scripts'
+    two loop lengths)."""
     fn()
     sync(device)
 
     def timed(k, trials=3):
-        return min(_seconds(fn, k, device) for _ in range(trials))
+        return min(seconds(fn, k, device) for _ in range(trials))
 
     t_small = timed(1 + n // 4)
     t_big = timed(1 + n)
-    per = (t_big - t_small) / (n - n // 4)
+    return (t_big - t_small) / (n - n // 4), t_small
+
+
+def loop_time(fn, n: int, label: str, device, out=print) -> float:
+    """Seconds per call of ``fn`` (``scripts/profile_detect.py:51-74``),
+    by :func:`differenced_seconds`."""
+    per, t_small = differenced_seconds(fn, n, device)
     out(f"{label:18s} {per * 1e3:9.3f} ms/iter   (n={n}, base "
         f"{t_small * 1e3:.0f} ms)")
     return per

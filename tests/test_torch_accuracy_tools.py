@@ -5,8 +5,21 @@
 - ``make_dataset`` at the tiny scale (seed 0, 4 images) writes the same
   CSV text as the JAX script's, and its PNGs (``data/codec.py``) decode to
   the pixels of the PNGs PIL writes there.
-- ``tiny_cfg`` and ``duplo_scale_cfg`` equal the JAX ones (JSON); the
-  photo and imagenet scales raise ``ValueError``.
+- Every scale's config (tiny, duplo, photo, imagenet, imagenet_smoke)
+  equals the JAX one (JSON).
+- ``make_photo_dataset`` (landscape, and mixed orientation as the
+  imagenet scales call it), with the JAX function given the port's three
+  photographs: the same CSV rows but for the extension (``.png`` for
+  ``.jpg``), and the pixels of PIL's decode of the JAX script's JPEG files,
+  bitwise (the bound asked for was mean |d| <= 1.5 and p99 <= 12 grey
+  levels); the corrupt files skipped by the batch iterator on the numpy
+  PNG reader (the card's path). Its
+  no-photograph branch runs too (the JAX branch raises on this Pillow: it
+  draws on the read-only array of ``np.asarray(image)``).
+- PIL's steps in numpy, each bitwise PIL's: ``jpeg_roundtrip`` against
+  PIL's save and open at quality 55, 75 and 94, ``gaussian_blur`` against
+  ``ImageFilter.GaussianBlur`` (asked: one grey level), ``resize_uint8``
+  against Pillow's uint8 bilinear resize.
 - The quant-parity mode table selects the JAX table's config fields and
   Detector options, mode by mode.
 - On a fixed seeded set of detections, proposals and ground truth: the
@@ -17,6 +30,7 @@
   the parity, sweep, attribution and analysis tools on its checkpoint.
 """
 
+import io
 import json
 import os
 import sys
@@ -69,7 +83,8 @@ def test_make_dataset_matches_jax(tmp_path):
     assert os.path.getmtime(tmp_path / "port" / "img0000.png") == mtime
 
 
-@pytest.mark.parametrize("scale", ["tiny", "duplo"])
+@pytest.mark.parametrize("scale", ["tiny", "duplo", "photo", "imagenet",
+                                   "imagenet_smoke"])
 def test_scale_configs_match_jax(scale):
     *_, n, j_fn, _ = j_tse.SCALES[scale]
     *_, n2, t_fn, _ = TSE.scale_spec(scale)
@@ -78,13 +93,112 @@ def test_scale_configs_match_jax(scale):
     assert TSE.scale_spec(scale)[:4] == j_tse.SCALES[scale][:4]
 
 
-@pytest.mark.parametrize("scale", ["photo", "imagenet", "imagenet_smoke"])
-def test_photo_scales_are_not_ported(scale, tmp_path):
-    with pytest.raises(ValueError, match="JPEG"):
-        TSE.scale_spec(scale)
-    with pytest.raises(ValueError, match="not ported"):
-        TSE.main(["--scale", scale, "--out", str(tmp_path), "--device",
-                  "cpu"])
+PHOTO_WH = (160, 120)     # scenes cut small: the tolerance is per pixel
+
+
+def _pil_jpeg(img, quality):
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+    buf.seek(0)
+    return np.asarray(Image.open(buf).convert("RGB"))
+
+
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["landscape", "mixed"])
+def test_make_photo_dataset_matches_jax(mixed, tmp_path, monkeypatch):
+    from frcnn_tpu_torch.data.importers import create_duplo_manifest
+    from frcnn_tpu_torch.data.pipeline import BatchIterator
+
+    monkeypatch.setattr(j_tse, "_bundled_photos", TSE._bundled_photos)
+    n = 6
+    args = (n, *PHOTO_WH, 3, 24, 60)
+    a = j_tse.make_photo_dataset(str(tmp_path / "jax"), *args, seed=0,
+                                 mixed_orientation=mixed)
+    b = TSE.make_photo_dataset(str(tmp_path / "port"), *args, seed=0,
+                               mixed_orientation=mixed)
+    rows = Path(b).read_text()
+    assert rows == Path(a).read_text().replace(".jpg", ".png")
+    assert len(rows.splitlines()) >= n
+    shapes = set()
+    for i in range(n):
+        got_path = tmp_path / "port" / f"img{i:04d}.png"
+        if i < 2:        # the JAX script's corrupt bytes, under .png names
+            assert got_path.read_bytes() == TSE.CORRUPT_BYTES == (
+                tmp_path / "jax" / f"img{i:04d}.jpg").read_bytes()
+            continue
+        with Image.open(tmp_path / "jax" / f"img{i:04d}.jpg") as im:
+            want = np.asarray(im.convert("RGB"))
+        got = read_rgb(str(got_path), use_native=False)
+        assert got.shape == want.shape
+        shapes.add(got.shape)
+        np.testing.assert_array_equal(got, want, err_msg=f"scene {i}")
+    assert len(shapes) == (2 if mixed else 1)
+    # every scene of the CSV read back; the corrupt ones skipped
+    manifest = create_duplo_manifest("photo", b, None, validation_size=n,
+                                     seed=0)
+    cfg = TSE.imagenet_smoke_cfg(3).replace(
+        examples_base_path=str(tmp_path / "port"))
+    names = manifest["validation_set"]
+    bad = [x for x in names if x in ("img0000.png", "img0001.png")]
+    items = BatchIterator(cfg, manifest, seed=0,
+                          use_native=False).next_validation(
+        len(names) - len(bad))
+    assert len(items) == len(names) - len(bad) and bad
+
+
+def test_make_photo_dataset_without_photographs(tmp_path, monkeypatch):
+    args = (3, *PHOTO_WH, 3, 24, 60)
+    b = TSE.make_photo_dataset(str(tmp_path / "b"), *args, seed=1)
+    monkeypatch.setattr(TSE, "_bundled_photos", lambda: [])
+    a = TSE.make_photo_dataset(str(tmp_path / "a"), *args, seed=1)
+    assert Path(a).read_text() != Path(b).read_text()
+    img = read_rgb(str(tmp_path / "a" / "img0002.png"), use_native=False)
+    assert img.shape == (PHOTO_WH[1], PHOTO_WH[0], 3) and img.std() > 5
+    # the same arguments again: found on disk, not rewritten
+    mtime = os.path.getmtime(tmp_path / "a" / "img0002.png")
+    assert TSE.make_photo_dataset(str(tmp_path / "a"), *args, seed=1) == a
+    assert os.path.getmtime(tmp_path / "a" / "img0002.png") == mtime
+
+
+@pytest.mark.parametrize("quality", [55, 75, 94])
+def test_jpeg_roundtrip_matches_pil(quality):
+    from frcnn_tpu_torch.data.codec import jpeg_roundtrip
+
+    photos = TSE._bundled_photos()
+    # odd sizes: edge blocks, the chroma planes' last odd column and row
+    for img in (*photos, photos[1][17:150, 33:251]):
+        img = np.ascontiguousarray(img)
+        np.testing.assert_array_equal(jpeg_roundtrip(img, quality),
+                                      _pil_jpeg(img, quality),
+                                      err_msg=f"{img.shape} q={quality}")
+
+
+def test_gaussian_blur_matches_pil():
+    from PIL import ImageFilter
+
+    from frcnn_tpu_torch.data.pipeline import gaussian_blur
+
+    rng = np.random.default_rng(0)
+    img = TSE._bundled_photos()[2][:90, :130].copy()
+    noise = rng.integers(0, 256, (23, 31, 3)).astype(np.uint8)
+    # the scenes' radii (0.25-1), and wider boxes than the image (4.0)
+    for radius in (*rng.uniform(0.25, 1.0, 6), 1.7, 4.0):
+        for x in (img, noise):
+            want = np.asarray(Image.fromarray(x).filter(
+                ImageFilter.GaussianBlur(float(radius))))
+            got = gaussian_blur(x, float(radius))
+            np.testing.assert_array_equal(got, want, err_msg=str(radius))
+
+
+def test_resize_uint8_matches_pil():
+    from frcnn_tpu_torch.data.pipeline import resize_uint8
+
+    img = TSE._bundled_photos()[2][:90, :130].copy()
+    for w, h in ((160, 120), (57, 200), (400, 33)):
+        want = np.asarray(Image.fromarray(img).resize((w, h),
+                                                      Image.BILINEAR))
+        np.testing.assert_array_equal(resize_uint8(img, w, h), want)
 
 
 def _jax_mode_table(cfg):

@@ -16,7 +16,8 @@ WRAPPERS = ("frcnn_tpu_torch.ops.nms_kernel",
             "frcnn_tpu_torch.ops.roi_pool_kernel",
             "frcnn_tpu_torch.ops.block0_kernel",
             "frcnn_tpu_torch.ops.block0_2conv_kernel",
-            "frcnn_tpu_torch.ops.pool_bwd_kernel")
+            "frcnn_tpu_torch.ops.pool_bwd_kernel",
+            "frcnn_tpu_torch.ops.matmul_kernel")
 
 
 def _port_files():
@@ -56,7 +57,13 @@ def test_port_imports_with_the_jax_side_blocked():
             "frcnn_tpu_torch.train.trainer, "
             "frcnn_tpu_torch.data.pipeline, frcnn_tpu_torch.data.importers, "
             "frcnn_tpu_torch.detect.evaluation, "
-            "frcnn_tpu_torch.utils.drawing; print('ok')")
+            "frcnn_tpu_torch.utils.drawing, "
+            "frcnn_tpu_torch.ops.matmul_kernel, "
+            "frcnn_tpu_torch.tools.probe_int8_dot, "
+            "frcnn_tpu_torch.tools.bench_block0, "
+            "frcnn_tpu_torch.tools.bench_pool_bwd, "
+            "frcnn_tpu_torch.tools.bench_scan, "
+            "frcnn_tpu_torch.tools.train_synthetic_eval; print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
@@ -80,5 +87,5 @@ def test_wrapper_counter_and_source_note(module):
         assert f"Replaces: {tpu_file}::" in src.replace("\n//", "")
         tpu_src = (ROOT / tpu_file).read_text().splitlines()
         assert tpu_src[int(line) - 1].startswith(
-            ("def _kernel", "def _bwd_kernel")), k.replaces
+            ("def _kernel", "def _bwd_kernel", "def _mm_kernel")), k.replaces
         assert "pl.pallas_call(" in "\n".join(tpu_src)
