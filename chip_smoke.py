@@ -6,7 +6,8 @@ Phases, each printing one flushed line with its seconds:
 
   env      the card (torch and nvidia-smi: name, power limit)
   build    one nvcc per source of frcnn_tpu_torch/csrc, all started
-           together, then one link, build every kernel
+           together, then one link, build every kernel; each entry's
+           registers and spills, and any ptxas warning
   kernels  each kernel against its plain PyTorch version at the serving
            shapes (equal, or within the stated tolerance), with CUDA-event
            times of kernel, plain version and, where one PyTorch call
@@ -29,18 +30,24 @@ Phases, each printing one flushed line with its seconds:
            under 1% of the values (the flip rate is printed), also on the
            ragged shapes (both kernels); times beside the float modes' on
            the same planes, and bounds
-  probe    row 7, the int8 matmul probe's kernel (csrc/matmul.cu):
-           tools/probe_int8_dot.py at its default 1024^3 with its launches
-           counted; the kernel against its plain version at 1024^3 (s8
-           bitwise, bf16 bitwise on integer values and within 2^-20
-           sum|a_ik b_kj| on normal ones), on edge shapes (ragged tiles, K
-           and N off the 16-byte grain, K tails) and where int32 sums
-           wrap; kernel, plain and library (torch._int_mm, torch.matmul)
-           times, TOPS and bounds; then s8 at the int8 chain's largest
-           GEMM (720000, 1152, 128): bitwise torch._int_mm over the whole
-           product and the plain version on its first 8192 rows, the same
-           times, and torch._int_mm with B K-contiguous as the chain calls
-           it
+  probe    row 7, the int8 matmul probe's kernels (csrc/matmul.cu): the
+           TMA/wgmma route (mm) and the mma.sync route (mm_sync).
+           tools/probe_int8_dot.py at its default 1024^3 (TMA) and at
+           33x70x17 (mma.sync) with the launches of each route counted;
+           both routes against the plain version at 1024^3 (s8 bitwise,
+           bf16 bitwise on integer values and within 2^-20 sum|a_ik b_kj|
+           on normal ones), on each route's edge shapes (ragged tiles,
+           every tile width, partial rounds of the persistent grid, K
+           tails; the TMA ones with B also K-contiguous) and where int32
+           sums wrap; kernel, plain and library (torch._int_mm,
+           torch.matmul) times, single-call medians and device time of
+           back-to-back calls, TOPS and bounds; then s8 at the int8
+           chain's largest GEMM (720000, 1152, 128) in both B layouts:
+           bitwise torch._int_mm over the whole product and the plain
+           version on its first 8192 rows, the same times beside
+           torch._int_mm on the same B; then every GEMM of vgg_small's
+           int8 chain at B=8, 450x800 as ops/int8_conv.py builds it (B
+           K-contiguous), bitwise torch._int_mm, device times and bounds
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
@@ -176,8 +183,9 @@ phase's training and evaluation, and for the ROI-pool forward and backward
 and the pool backward ``launches_train_large`` and
 ``device_ms_train_large``, per vgg_large train step and bucket,
 ``launches_cli`` by subcommand, ``launches_dryrun_real`` and
-``launches_bench`` by mode, ``launches_micro``; row 7's ``mm`` with its
-``bf16`` mode and its ``chain`` shape), the card's name and power limit,
+``launches_bench`` by mode, ``launches_micro``; row 7's ``mm`` and
+``mm_sync`` with ``library_device_ms``, their ``bf16`` mode and their
+``chain`` shape, ``mm``'s ``chain_sweep``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line; a watchdog ends the run with a
 traceback once it has taken BUDGET_S seconds. It needs one CUDA card and
@@ -289,6 +297,22 @@ def phase_env():
     return name, smi
 
 
+def _entry_name(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled ``_ZN...`` name: the
+    last of its length-prefixed nested names (the whole name where it has
+    none)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
 def phase_build():
     from frcnn_tpu_torch.ops import cuda_lib
 
@@ -297,19 +321,24 @@ def phase_build():
     t = time.perf_counter()
     path = cuda_lib.build()
     cuda_lib.library()
-    kernel, spill = "?", ""
+    kernel, spill, source = "?", "", "?"
     for ln in (path.parent / "nvcc.log").read_text().splitlines():
-        if "Compiling entry function" in ln:
+        if ln.startswith("== "):
+            source = ln[3:]
+        elif "Compiling entry function" in ln:
             k = cuda_lib.ptxas_entry(ln)
-            kernel = ln.split("'")[1] if k is None else k.entry
+            kernel = _entry_name(ln.split("'")[1]) if k is None else k.entry
             if k is not None:   # the instance's mangled template arguments
                 args = ln.split(k.entry, 1)[1]
                 kernel += " " + args.split("EEv")[0] if args[:1] == "I" else ""
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "registers" in ln:
-            print(f"[build] ptxas: {kernel}: {ln.split(':', 1)[-1].strip()}"
-                  f"; {spill}", flush=True)
+            print(f"[build] ptxas: {source}: {kernel}: "
+                  f"{ln.split(':', 1)[-1].strip()}; {spill}", flush=True)
+        elif "ptxas" in ln and "warning" in ln.lower():
+            # e.g. C7508: setmaxnreg ignored
+            print(f"[build] {source}: {ln.strip()}", flush=True)
     log("build", f"{len(cuda_lib.sources())} sources -> {path.name}", t)
 
 
@@ -3156,12 +3185,26 @@ PROBE_ITERS = 20
 # (_conv_layers: 8 x 225 x 400 rows of im2col, K = 9 x 128, N = 128)
 PROBE_CHAIN = (B * 225 * 400, 9 * 128, 128)
 PROBE_PLAIN_ROWS = 8192
-# one element; ragged tiles with K or N no multiple of 16 bytes (the
-# kernel's plain-load staging) and K tails; several tiles each way
+# the mma.sync route (via="sync"): one element; ragged tiles with K or N no
+# multiple of 16 bytes (the kernel's plain-load staging) and K tails;
+# several tiles each way
 PROBE_EDGES = ((1, 1, 1), (33, 70, 17), (64, 96, 40), (300, 77, 260),
                (130, 1040, 200), (257, 1152, 136))
 # int32 sums past 2^31 - 1: K x 127^2 >= 2^31 from K = 133,144
 PROBE_WRAP = (17, 133200, 24)
+# the TMA route, on the 16-byte grain: M no multiple of 128, N no multiple
+# of BN (136, 8, 1000, 24, 16, 104, 376), K no multiple of 128 bytes (1040
+# s8 and 2080 bf16, 48, 272, 64 s8, 80, 208); on the card's 132 SMs tiles
+# of 128 x 64 (BN = 64: at most 66 tiles of 128 x 128; 6, 2 and 1 tiles),
+# 128 x 256 (252), 128 x 128 (133 and 131) and 128 x 192 (134): every BN,
+# and at each of the wider ones the persistent grid's partial last round
+# or a round short of one SM
+PROBE_TMA_EDGES = ((200, 1040, 136), (130, 48, 8), (8000, 272, 1000),
+                   (17000, 64, 24), (16, 1024, 16), (16700, 80, 104),
+                   (8500, 208, 376))
+PROBE_TMA_WRAP = (17, 133200, 32)
+# the tool's run on the mma.sync route (K and N off the 16-byte grain)
+PROBE_SYNC_TOOL = (33, 70, 17)
 
 
 def _mm_bound(m: int, k: int, n: int, dtype):
@@ -3172,48 +3215,128 @@ def _mm_bound(m: int, k: int, n: int, dtype):
                     dtype)
 
 
-def _mm_check(K, plain, a, b, what: str, tol=None) -> float:
-    """The kernel against the plain version: bitwise, or within
-    ``tol(a, b)`` elementwise. Returns the max abs err."""
-    got = K.mm(a, b)
+def _mm_check(K, plain, a, b, what: str, via: str, tol=None) -> float:
+    """The kernel on route ``via`` against the plain version: bitwise, or
+    within ``tol(a, b)`` elementwise. Returns the max abs err."""
+    got = K.mm(a, b, via=via)
     torch.cuda.synchronize()
     want = plain(a, b)
     if tol is None:
         if not torch.equal(got, want):
             raise AssertionError(
-                f"probe: {what}: {int((got != want).sum())} of "
+                f"probe: {what} ({via}): {int((got != want).sum())} of "
                 f"{got.numel()} values differ from the plain version")
         return 0.0
     err = (got - want).abs()
     if not bool((err <= tol(a, b)).all()):
-        raise AssertionError(f"probe: {what}: max abs err "
+        raise AssertionError(f"probe: {what} ({via}): max abs err "
                              f"{float(err.max()):.3g} past the tolerance")
     return float(err.max())
 
 
-def _mm_times(K, plain, a, b, library, reps: int = 15, plain_reps: int = 5):
-    """(kernel ms, plain ms, library ms, bound ms, bound by, kernel TOPS)
-    of ``a @ b``."""
-    (m, k), n = a.shape, b.shape[1]
-    ms = time_ms(lambda: K.mm(a, b), reps=reps)
-    pms = time_ms(lambda: plain(a, b), reps=plain_reps, warmup=1)
-    lms = time_ms(library, reps=reps)
-    bms, by = _mm_bound(m, k, n, a.dtype)
-    return ms, pms, lms, bms, by, 2.0 * m * k * n / ms / 1e9
+def _mm_times(fn, plain, library, m, k, n, dtype, plain_reps: int = 5):
+    """Times of one product: ``ms`` (CUDA-event median of single calls,
+    the wrapper's host work included), ``device_ms`` (back-to-back calls,
+    ``tools/probe_int8_dot.py::device_ms``), the plain version's ms, the
+    library call's both, the bound and the kernel's TOPS on device time."""
+    from frcnn_tpu_torch.tools.probe_int8_dot import device_ms
+
+    bms, by = _mm_bound(m, k, n, dtype)
+    r = {"ms": time_ms(fn), "device_ms": device_ms(fn, PROBE_ITERS),
+         "plain_ms": None if plain is None else time_ms(
+             plain, reps=plain_reps, warmup=1),
+         "library_ms": time_ms(library),
+         "library_device_ms": device_ms(library, PROBE_ITERS),
+         "bound_ms": bms, "bound_by": by}
+    r["tops"] = 2.0 * m * k * n / r["device_ms"] / 1e9
+    return r
+
+
+def _mm_line(what: str, r) -> str:
+    return (f"{what}: kernel {r['ms']:.4f} ms ({r['device_ms']:.5f} device, "
+            f"{r['tops']:.1f} TOPS), library {r['library_ms']:.4f} ms "
+            f"({r['library_device_ms']:.5f} device), plain "
+            + ("-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}")
+            + f" ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def _chain_gemms(cfg):
+    """Every distinct (M, K, N) of the int8 chain's products at B and
+    IMAGE_HW, each with a conv that makes it: (M, K, N, name, NHWC input
+    shape, kh, kw, padding, outputs)."""
+    out = {}
+    for _, name, shape, kh, kw, (ph, pw), n in _conv_layers(cfg, IMAGE_HW):
+        b, h, w, c = shape
+        m = b * (h + 2 * ph - kh + 1) * (w + 2 * pw - kw + 1)
+        key = (max(m, 17), -(-kh * kw * c // 8) * 8, -(-n // 8) * 8)
+        out.setdefault(key, (name, shape, kh, kw, ((ph, ph), (pw, pw)), n))
+    return [(*k, *v) for k, v in sorted(out.items())]
+
+
+def _probe_sweep(K, gen):
+    """The int8 chain's GEMMs of vgg_small at B=8, 450x800, each as
+    ``ops/int8_conv.py``'s ``im2col`` and ``weight_matrix`` build it, B
+    K-contiguous (``wmat.t()``, the chain's call): the kernel bitwise
+    ``torch._int_mm``; kernel, library and bound times."""
+    from frcnn_tpu_torch.config import serving_config
+    from frcnn_tpu_torch.ops import int8_conv
+    from frcnn_tpu_torch.tools.probe_int8_dot import device_ms
+
+    t = time.perf_counter()
+    rows = []
+    for m, k, n, name, shape, kh, kw, pad, n_out in _chain_gemms(
+            serving_config()):
+        xq = torch.randint(-127, 128, shape, device="cuda", generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n_out, shape[3], kh, kw),
+                           device="cuda", generator=gen, dtype=torch.int8)
+        a = int8_conv.im2col(xq, kh, kw, pad)
+        b = int8_conv.weight_matrix(wq).t()
+        if tuple(a.shape) != (m, k) or tuple(b.shape) != (k, n) or \
+                K.route(a, b) != "tma":
+            raise AssertionError(f"probe: {name} gives {tuple(a.shape)} x "
+                                 f"{tuple(b.shape)} ({K.route(a, b)})")
+        got = K.mm(a, b)
+        if not torch.equal(got, torch._int_mm(a, b)):
+            raise AssertionError(f"probe: {name} {m}x{k}x{n} differs from "
+                                 f"torch._int_mm")
+        del got
+        dms = device_ms(lambda: K.mm(a, b), PROBE_ITERS)
+        lms = device_ms(lambda: torch._int_mm(a, b), PROBE_ITERS)
+        bms, by = _mm_bound(m, k, n, torch.int8)
+        rows.append({"conv": name, "shape": [m, k, n], "device_ms": dms,
+                     "library_device_ms": lms, "bound_ms": bms,
+                     "bound_by": by})
+        print(f"[probe] sweep {name} {m}x{k}x{n}: == torch._int_mm; kernel "
+              f"{dms:.5f} ms, _int_mm {lms:.5f} ms ({dms / lms:.2f}x), "
+              f"bound {bms:.5f} ms ({by}; kernel at "
+              f"{100 * bms / dms:.0f}%)", flush=True)
+        del xq, wq, a, b
+    torch.cuda.empty_cache()
+    k_tot = sum(r["device_ms"] for r in rows)
+    l_tot = sum(r["library_device_ms"] for r in rows)
+    log("probe", f"chain sweep: {len(rows)} GEMMs bitwise torch._int_mm "
+        f"with B K-contiguous; device ms summed: kernel {k_tot:.4f}, "
+        f"_int_mm {l_tot:.4f}", t)
+    return rows
 
 
 def phase_probe(kernels):
-    """Row 7, the int8 matmul probe's kernel (``csrc/matmul.cu``).
-    ``tools/probe_int8_dot.py`` at its default 1024^3 (the probe's main
-    path, its launches counted); then the kernel against its plain version
+    """Row 7, the int8 matmul probe's kernels (``csrc/matmul.cu``): the
+    TMA/``wgmma`` route (``mm``) and the ``mma.sync`` route (``mm_sync``).
+    ``tools/probe_int8_dot.py`` at its default 1024^3 (TMA) and at an
+    unaligned shape (``mma.sync``), the launches of both counted; then on
+    both routes the kernel against its plain version
     (``ops/matmul.py::mm_plain``): at 1024^3 s8 bitwise, bf16 bitwise on
     the probe's integer values and within 2^-20 sum|a_ik b_kj| on normal
-    values; on edge shapes (ragged tiles, unaligned K and N, K tails) s8
-    and bf16 bitwise on integer values; a product whose int32 sums wrap,
-    bitwise. Times, bounds and TOPS of kernel, plain version and library
-    (``torch._int_mm``, ``torch.matmul``) at 1024^3, then s8 at the int8
-    chain's largest GEMM: bitwise ``torch._int_mm`` over the whole
-    product and the plain version on its first rows, the same times."""
+    values; on edge shapes of each route s8 and bf16 bitwise (integer
+    values), the TMA route's also with B K-contiguous; a product whose
+    int32 sums wrap on each route, bitwise. Times at 1024^3 of both routes
+    beside the plain version and the library (``torch._int_mm``,
+    ``torch.matmul``): single-call medians and device time of back-to-back
+    calls. The int8 chain's largest GEMM in both B layouts, bitwise
+    ``torch._int_mm`` and the plain version on its first rows, timed the
+    same way; then every GEMM of the chain (:func:`_probe_sweep`)."""
     from frcnn_tpu_torch.ops import matmul_kernel as K
     from frcnn_tpu_torch.ops.matmul import mm_plain
     from frcnn_tpu_torch.tools import probe_int8_dot as P
@@ -3223,12 +3346,20 @@ def phase_probe(kernels):
     n = 1024
     lines, launches = _tool("probe_int8_dot", P.main,
                             [str(n)] * 3 + [str(PROBE_ITERS)], "probe")
-    rec = json.loads(lines[0])
-    if not (rec["builds"] and rec["exact"] and rec["exact_bf16"]) or \
-            set(launches) != {"mm"}:
-        raise AssertionError(f"probe: {rec}, launches {launches}")
-    log("probe", f"probe_int8_dot {n}^3 x {PROBE_ITERS}: s8 and bf16 exact, "
-        f"{launches['mm']} launches", t)
+    lines_s, launches_s = _tool("probe_int8_dot", P.main,
+                                [*map(str, PROBE_SYNC_TOOL),
+                                 str(PROBE_ITERS)], "probe")
+    recs = [json.loads(lines[0]), json.loads(lines_s[0])]
+    routes = [json.loads(ln).get("route") for ln in lines[1:3] + lines_s[1:3]]
+    if not all(r["builds"] and r["exact"] and r["exact_bf16"]
+               for r in recs) or set(launches) != {"mm"} or \
+            set(launches_s) != {"mm_sync"} or \
+            routes != ["tma", "tma", "sync", "sync"]:
+        raise AssertionError(f"probe: {recs}, routes {routes}, launches "
+                             f"{launches}, {launches_s}")
+    log("probe", f"probe_int8_dot {n}^3 and {PROBE_SYNC_TOOL} x "
+        f"{PROBE_ITERS}: s8 and bf16 exact; launches {launches} (TMA "
+        f"route), {launches_s} (mma.sync route)", t)
 
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -3238,88 +3369,120 @@ def phase_probe(kernels):
                              generator=gen, dtype=torch.int8).to(dtype)
 
     a8, b8, abf, bbf = P.operands(n, n, n, "cuda")
-    _mm_check(K, mm_plain, a8, b8, "s8 1024^3")
-    _mm_check(K, mm_plain, abf, bbf, "bf16 1024^3, integer values")
     an = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
     bn = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
-    err_bf = _mm_check(
-        K, mm_plain, an, bn, "bf16 1024^3, normal values",
-        lambda a, b: 2.0 ** -20 * (a.float().abs() @ b.float().abs()))
-    for m, k, nn in PROBE_EDGES:
-        _mm_check(K, mm_plain, ints((m, k), 127), ints((k, nn), 127),
-                  f"s8 {m}x{k}x{nn}")
+    err_bf = {}
+    for via in ("tma", "sync"):
+        _mm_check(K, mm_plain, a8, b8, "s8 1024^3", via)
+        _mm_check(K, mm_plain, abf, bbf, "bf16 1024^3, integer values", via)
+        err_bf[via] = _mm_check(
+            K, mm_plain, an, bn, "bf16 1024^3, normal values", via,
+            lambda a, b: 2.0 ** -20 * (a.float().abs() @ b.float().abs()))
         # |values| <= 15: every partial sum below 2^24 up to K = 74,565
-        _mm_check(K, mm_plain, ints((m, k), 15, torch.bfloat16),
-                  ints((k, nn), 15, torch.bfloat16), f"bf16 {m}x{k}x{nn}")
-    m, k, nn = PROBE_WRAP
-    aw = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
-    bw = ints((k, nn), 127)
-    bw[:, 0] = 127
-    bw[:, 1] = -127
-    _mm_check(K, mm_plain, aw, bw, f"s8 {m}x{k}x{nn} (int32 sums wrap)")
-    wrapped = int(((aw[:1].double() @ bw.double()).abs() >= 2 ** 31).sum())
-    if wrapped < 2:
-        raise AssertionError("probe: the wrap case does not wrap")
-    log("probe", f"mm == plain: s8 bitwise, bf16 bitwise on integer values "
-        f"and within 2^-20 sum|ab| on normal values (max abs err "
-        f"{err_bf:.3g}) at 1024^3; s8 and bf16 bitwise at "
-        f"{len(PROBE_EDGES)} edge shapes {PROBE_EDGES}; s8 bitwise at "
-        f"{PROBE_WRAP} with {wrapped} of {nn} int32 sums past 2^31", t)
+        for m, k, nn in PROBE_TMA_EDGES + (PROBE_EDGES if via == "sync"
+                                           else ()):
+            a = ints((m, k), 127)
+            _mm_check(K, mm_plain, a, ints((k, nn), 127), f"s8 {m}x{k}x{nn}",
+                      via)
+            _mm_check(K, mm_plain, a, ints((nn, k), 127).t(),
+                      f"s8 {m}x{k}x{nn}, B K-contiguous", via)
+            _mm_check(K, mm_plain, ints((m, k), 15, torch.bfloat16),
+                      ints((k, nn), 15, torch.bfloat16), f"bf16 {m}x{k}x{nn}",
+                      via)
+    wrapped = {}
+    for via, (m, k, nn) in (("sync", PROBE_WRAP), ("tma", PROBE_TMA_WRAP)):
+        aw = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+        bw = ints((k, nn), 127)
+        bw[:, 0] = 127
+        bw[:, 1] = -127
+        _mm_check(K, mm_plain, aw, bw, f"s8 {m}x{k}x{nn} (int32 sums wrap)",
+                  via)
+        if via == "tma":
+            _mm_check(K, mm_plain, aw, bw.t().contiguous().t(),
+                      f"s8 {m}x{k}x{nn} (int32 sums wrap), B K-contiguous",
+                      via)
+        wrapped[via] = int(((aw[:1].double() @ bw.double()).abs()
+                            >= 2 ** 31).sum())
+        if wrapped[via] < 2:
+            raise AssertionError(f"probe: the wrap case {m}x{k}x{nn} does "
+                                 f"not wrap")
+    log("probe", f"mm == plain on both routes: s8 bitwise, bf16 bitwise on "
+        f"integer values and within 2^-20 sum|ab| on normal values (max abs "
+        f"err {err_bf['tma']:.3g} TMA, {err_bf['sync']:.3g} mma.sync) at "
+        f"1024^3; s8 (B N- and K-contiguous) and bf16 bitwise at "
+        f"{len(PROBE_TMA_EDGES)} TMA edge shapes {PROBE_TMA_EDGES} on both "
+        f"routes and at {len(PROBE_EDGES)} mma.sync edge shapes "
+        f"{PROBE_EDGES}; s8 bitwise at {PROBE_TMA_WRAP} (TMA, both B "
+        f"layouts) and {PROBE_WRAP} (mma.sync) with {wrapped['tma']} and "
+        f"{wrapped['sync']} int32 sums past 2^31", t)
 
     t = time.perf_counter()
-    res = {}
+    res = {"tma": {}, "sync": {}}
     for dt, a, b, lib, lib_name in (
             (torch.int8, a8, b8, lambda: torch._int_mm(a8, b8), "_int_mm"),
             (torch.bfloat16, abf, bbf, lambda: torch.matmul(abf, bbf),
              "matmul (bf16 out)")):
-        ms, pms, lms, bms, by, tops = _mm_times(K, mm_plain, a, b, lib)
-        res[dt] = {"ms": ms, "plain_ms": pms, "library_ms": lms,
-                   "bound_ms": bms, "bound_by": by, "tops": tops}
-        log("probe", f"mm {str(dt)[6:]} {n}^3: kernel {ms:.4f} ms "
-            f"({tops:.1f} TOPS), plain {pms:.4f} ms, torch.{lib_name} "
-            f"{lms:.4f} ms ({2.0 * n ** 3 / lms / 1e9:.1f} TOPS), bound "
-            f"{bms:.5f} ms ({by})", t)
+        for via in ("tma", "sync"):
+            r = _mm_times(lambda: K.mm(a, b, via=via),
+                          lambda: mm_plain(a, b), lib, n, n, n, dt)
+            res[via][dt] = r
+            print(f"[probe] " + _mm_line(
+                f"mm {str(dt)[6:]} {n}^3 via {via}, torch.{lib_name}", r),
+                flush=True)
+    log("probe", f"{n}^3 timed", t)
     del a8, b8, abf, bbf, an, bn
 
     t = time.perf_counter()
     m, k, nn = PROBE_CHAIN
     a, b = ints((m, k), 127), ints((k, nn), 127)
-    got = K.mm(a, b)
-    if not torch.equal(got, torch._int_mm(a, b)):
-        raise AssertionError(f"probe: s8 {PROBE_CHAIN} differs from "
-                             f"torch._int_mm")
-    if not torch.equal(got[:PROBE_PLAIN_ROWS],
-                       mm_plain(a[:PROBE_PLAIN_ROWS], b)):
-        raise AssertionError(f"probe: s8 {PROBE_CHAIN} differs from the "
-                             f"plain version")
-    del got
-    ms, pms, lms, bms, by, tops = _mm_times(
-        K, mm_plain, a, b, lambda: torch._int_mm(a, b), plain_reps=3)
     # the int8 chain calls torch._int_mm(cols, wmat.t()): B K-contiguous
     bk = b.t().contiguous().t()
-    if not torch.equal(torch._int_mm(a, bk), torch._int_mm(a, b)):
+    want = torch._int_mm(a, bk)
+    if not torch.equal(torch._int_mm(a, b), want):
         raise AssertionError("probe: torch._int_mm differs by B's layout")
-    kms = time_ms(lambda: torch._int_mm(a, bk))
-    ops = 2.0 * m * k * nn
-    chain = {"shape": list(PROBE_CHAIN), "ms": ms, "plain_ms": pms,
-             "library_ms": lms, "bound_ms": bms, "bound_by": by,
-             "tops": tops, "library_tops": ops / lms / 1e9,
-             "library_ms_b_kmajor": kms, "library_tops_b_kmajor":
-             ops / kms / 1e9}
+    for via, bb, lay in (("tma", b, "N"), ("tma", bk, "K"),
+                         ("sync", b, "N")):
+        got = K.mm(a, bb, via=via)
+        if not torch.equal(got, want) or not torch.equal(
+                got[:PROBE_PLAIN_ROWS], mm_plain(a[:PROBE_PLAIN_ROWS], b)):
+            raise AssertionError(f"probe: s8 {PROBE_CHAIN} ({via}, B "
+                                 f"{lay}-contiguous) differs from "
+                                 f"torch._int_mm or the plain version")
+        del got
+    del want
+    chain = {}
+    for via, bb, lay in (("tma", bk, "K"), ("tma", b, "N"),
+                         ("sync", b, "N")):
+        r = _mm_times(lambda: K.mm(a, bb, via=via),
+                      (lambda: mm_plain(a, b)) if lay == "N" and via == "tma"
+                      else None, lambda: torch._int_mm(a, bb), m, k, nn,
+                      torch.int8, plain_reps=3)
+        chain[(via, lay)] = r
+        print(f"[probe] " + _mm_line(
+            f"mm s8 {m}x{k}x{nn} via {via}, B {lay}-contiguous, "
+            f"torch._int_mm on the same B", r), flush=True)
     log("probe", f"mm s8 {m}x{k}x{nn} (block 1's second conv at B={B}, "
-        f"450x800): == torch._int_mm over the whole product, == plain on "
-        f"the first {PROBE_PLAIN_ROWS} rows; kernel {ms:.4f} ms "
-        f"({tops:.1f} TOPS), torch._int_mm {lms:.4f} ms "
-        f"({chain['library_tops']:.1f} TOPS; {kms:.4f} ms, "
-        f"{ops / kms / 1e9:.1f} TOPS with B K-contiguous, as the int8 "
-        f"chain calls it), plain {pms:.3f} ms, bound {bms:.4f} ms ({by})", t)
+        f"450x800): both routes and both B layouts == torch._int_mm over "
+        f"the whole product and == plain on the first {PROBE_PLAIN_ROWS} "
+        f"rows", t)
     del a, b, bk
     torch.cuda.empty_cache()
-    kernels["mm"] = {"launches": launches["mm"], "max_abs_err": 0.0,
-                     **res[torch.int8],
-                     "bf16": {**res[torch.bfloat16],
-                              "max_abs_err_normal": err_bf},
-                     "chain": chain}
+    sweep = _probe_sweep(K, gen)
+
+    def entry(via, launches_n):
+        r8 = res[via][torch.int8]
+        ck = chain[(via, "K")] if via == "tma" else None
+        cn = chain[(via, "N")]
+        plain = chain[("tma", "N")]["plain_ms"]
+        return {"launches": launches_n, "max_abs_err": 0.0, **r8,
+                "bf16": {**res[via][torch.bfloat16],
+                         "max_abs_err_normal": err_bf[via]},
+                "chain": {"shape": list(PROBE_CHAIN),
+                          **({"b_kmajor": ck} if ck else {}),
+                          "b_nmajor": {**cn, "plain_ms": plain}}}
+
+    kernels["mm"] = {**entry("tma", launches["mm"]), "chain_sweep": sweep}
+    kernels["mm_sync"] = entry("sync", launches_s["mm_sync"])
 
 
 # -- the micro-benchmarks ------------------------------------------------------------
@@ -3560,7 +3723,8 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "device_ms": r.get("device_ms")})
-        for extra in ("tops", "bf16", "chain", "launches_micro",
+        for extra in ("tops", "bf16", "chain", "chain_sweep",
+                      "library_device_ms", "launches_micro",
                       "device_ms_train_step", "device_ms_large",
                       "launches_data", "launches_train_large",
                       "device_ms_train_large", "launches_cli",

@@ -84,13 +84,14 @@ def build() -> Path:
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, o in zip(srcs, objs)]
-    logs, failed = [], []
+    logs, failed, failed_logs = [], [], []
     try:
         for src, p in zip(srcs, procs):
             left = max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0))
             logs.append(f"== {src.name}\n" + p.communicate(timeout=left)[0])
             if p.returncode != 0:
                 failed.append(f"{src.name} ({p.returncode})")
+                failed_logs.append(logs[-1])
         if not failed:
             link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
                                    *map(str, objs)], capture_output=True,
@@ -98,6 +99,7 @@ def build() -> Path:
             logs.append("== link\n" + link.stdout + link.stderr)
             if link.returncode != 0:
                 failed.append(f"link ({link.returncode})")
+                failed_logs.append(logs[-1])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -110,8 +112,9 @@ def build() -> Path:
     (out_dir / "nvcc.log").write_text(log)
     if failed:
         tmp.unlink(missing_ok=True)
+        # each failed step's own output (its errors come first)
         raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
-                           + log[-4000:])
+                           + "".join(x[:4000] for x in failed_logs))
     os.replace(tmp, out)
     print(f"[frcnn_tpu_torch] nvcc built {len(srcs)} sources into "
           f"{out.relative_to(PACKAGE_DIR)} in {seconds:.1f} s", flush=True)
