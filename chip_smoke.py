@@ -140,7 +140,14 @@ Phases, each printing one flushed line with its seconds:
            plots where matplotlib is installed), evaluate --serving fast,
            demo --count 2, export-t7-model then import-t7-model (weights
            back bitwise); each subcommand's wall time and the launches of
-           every kernel it ran
+           every kernel it ran; then train again (2 steps, same files and
+           seed) with torchrun's variables set (RANK=0, WORLD_SIZE=1), so
+           that the CLI's rank path trains in a one-rank NCCL group:
+           metrics and step-2 snapshot against the plain run's (bitwise,
+           or within the [train] tolerances, as the line says), its
+           launches, no process group left, the world size the device
+           rule picks on this machine, its wall beside the card's name and
+           power limit
   parallel a world-size-1 NCCL process group: a data-parallel float32 step
            (sums, counts, gradients and the skip vote through NCCL
            all-reduces) against ``Trainer``'s step at the [train]
@@ -202,6 +209,7 @@ import importlib.util
 import io
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -2795,11 +2803,98 @@ def _cli(argv):
                                   if k.launches}
 
 
-def phase_cli(kernels, root: Path):
+@contextlib.contextmanager
+def _environ(values: dict):
+    """``os.environ`` with ``values`` set, restored at exit."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def _leaves(tree) -> list:
+    """The arrays of nested dicts, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _check_group_train(work: Path, common, cfg, plain_s: float, smi: str):
+    """``train`` again, 2 steps on the same files and seed, with
+    ``torchrun``'s variables set: ``cmd_train`` takes its rank path and
+    trains in a one-rank NCCL group it joins and destroys. Held against
+    the plain run's first 2 steps: bitwise, else the ``[train]``
+    tolerances (losses rtol 1e-5, counts equal, every parameter array
+    within 1e-4 of its largest magnitude)."""
+    import torch.distributed as dist
+
+    from frcnn_tpu_torch.parallel.mesh import data_parallel_size, free_port
+    from frcnn_tpu_torch.utils.serialization import load_checkpoint
+
+    steps = 2
+    grp = str(work / "grp")
+    with _environ(dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(free_port()))):
+        wall, _, launches = _cli(["train", *common, "--name", grp,
+                                  "--steps", str(steps), "--snapshot", "2"])
+    if dist.is_initialized():
+        raise AssertionError("cli train (group): a process group is left "
+                             "initialized")
+    want = {"roi_pool": steps, "roi_pool_bwd": steps, "pool_bwd": 4 * steps}
+    if launches != want:
+        raise AssertionError(f"cli train (group): launches {launches}, "
+                             f"expected {want}")
+    recs = [[json.loads(x) for x in
+             (work / f"{n}_metrics.jsonl").read_text().splitlines()[:steps]]
+            for n in ("grp", "run")]
+    for r in recs[0] + recs[1]:
+        r.pop("step_time_s")
+    got, ref = (_leaves(load_checkpoint(str(work / f"{n}_000002.ckpt"))[
+        "params"]) for n in ("grp", "run"))
+    bitwise = recs[0] == recs[1] and all(
+        np.array_equal(x, y) for x, y in zip(got, ref, strict=True))
+    how = "bitwise"
+    if not bitwise:
+        for a, b in zip(*recs, strict=True):
+            for k in ("cls_count", "reg_count", "skipped"):
+                if a[k] != b[k]:
+                    raise AssertionError(f"cli train (group): {k} {a[k]} "
+                                         f"against {b[k]}")
+            for k in ("pcls", "preg", "dcls", "dreg", "loss"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5,
+                                           err_msg=f"cli train (group) {k}")
+        worst = max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+                    for x, y in zip(got, ref))
+        if worst > 1e-4:
+            raise AssertionError(f"cli train (group): step-2 parameters "
+                                 f"{worst:.3g} of their largest apart")
+        how = (f"NOT bitwise: within the [train] tolerances (parameters at "
+               f"most {worst:.3g} of their largest apart)")
+    count = torch.cuda.device_count()
+    world = data_parallel_size(count, cfg.shapes.images_per_step)
+    print(f"[cli] train (group): RANK=0 WORLD_SIZE=1, cmd_train's rank path "
+          f"in a one-rank NCCL group: {wall:.2f} s wall for {steps} steps "
+          f"(the plain train: {plain_s:.2f} s for {CLI_STEPS}); metrics and "
+          f"step-2 snapshot {how} the plain run's; launches {launches}; no "
+          f"process group left; the device rule picks world {world} on "
+          f"this machine ({count} card(s), images_per_step "
+          f"{cfg.shapes.images_per_step}); {smi}", flush=True)
+    return launches
+
+
+def phase_cli(kernels, root: Path, smi: str):
     """``python -m frcnn_tpu_torch`` with ``--device cuda`` on the data
     phase's PNG files and a config JSON with ``pallas_mode: "on"``:
-    import-duplo, train, evaluate --serving fast, demo, and the t7 model
-    export/import cycle."""
+    import-duplo, train, the same train through the CLI's rank path
+    (:func:`_check_group_train`), evaluate --serving fast, demo, and the
+    t7 model export/import cycle."""
     from frcnn_tpu_torch.utils.serialization import load_checkpoint
 
     t = time.perf_counter()
@@ -2879,6 +2974,9 @@ def phase_cli(kernels, root: Path):
         launches_cli[what] = launches
         print(f"[cli] {what}: {wall:.2f} s wall; launches {launches}{note}",
               flush=True)
+        if what == "train":
+            launches_cli["train (group)"] = _check_group_train(
+                work, common, cfg, wall, smi)
     for what, launches in launches_cli.items():
         for k, n in launches.items():
             kernels[k].setdefault("launches_cli", {})[what] = n
@@ -3702,7 +3800,7 @@ def main() -> int:
     phase_train_large(kernels)
     with tempfile.TemporaryDirectory() as tmp:
         phase_data(kernels, steps_ms["kernel"], Path(tmp))
-        phase_cli(kernels, Path(tmp))
+        phase_cli(kernels, Path(tmp), smi)
     phase_parallel()
     phase_entry(kernels)
     phase_bench(kernels)

@@ -23,6 +23,16 @@ follow the config (``pallas_mode``): a config JSON with ``"pallas_mode":
 "on"`` trains through them, ``--serving fast`` serves through them. On the
 CPU the kernels' plain versions run.
 
+``train`` spreads its steps over every local card, as ``main.py train``
+spreads them over every local device: over the largest count of them, up
+to ``--devices``, that divides ``images_per_step``, one process per card
+(``parallel/mesh.py::launch``). Each process takes its rows of the same
+whole batch, so the trajectory is the one-process trajectory. Under
+``torchrun`` (``RANK``/``WORLD_SIZE`` set) each process is one rank and
+nothing is spawned again:
+
+    torchrun --nproc-per-node N -m frcnn_tpu_torch train ...
+
 Checkpoints are the JAX package's format both ways, so either CLI
 continues or serves the other's snapshots.
 """
@@ -92,9 +102,81 @@ def require_device(name: str):
     return device
 
 
+def device_count(device, requested) -> int:
+    """``--devices``: how many local devices a data-parallel step may use.
+    By default every visible card under CUDA (``main.py`` takes every
+    device JAX sees), one process on the CPU; asking for more cards than
+    are visible stops the command."""
+    import torch
+
+    if requested is not None and requested < 1:
+        raise SystemExit(f"--devices {requested}: at least 1")
+    if device.type != "cuda":
+        return 1 if requested is None else requested
+    visible = torch.cuda.device_count()
+    if requested is None:
+        return visible
+    if requested > visible:
+        raise SystemExit(f"--devices {requested}: only {visible} CUDA "
+                         f"device(s) are visible")
+    return requested
+
+
+def setup_logging(rank: int = 0):
+    """INFO lines on rank 0, WARNING and above on the other ranks."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="[%(asctime)s] %(message)s")
+    if rank:
+        logging.getLogger().setLevel(logging.WARNING)
+
+
+def in_rank():
+    """Whether this process is one rank of a group that ``torchrun`` or
+    ``parallel/mesh.py::launch`` started (its variables are set)."""
+    return "WORLD_SIZE" in os.environ
+
+
 def cmd_train(args):
     """The training loop with loss lines, periodic plots and snapshots,
-    restart-safe (``graph_training``)."""
+    restart-safe (``graph_training``), data-parallel over
+    ``data_parallel_size(--devices, images_per_step)`` processes."""
+    from frcnn_tpu_torch.parallel.mesh import data_parallel_size, launch
+
+    _require_file(args.train, "training manifest")
+    _require_file(args.restore, "checkpoint")
+    device = require_device(args.device)
+    if in_rank():
+        _train_rank(args, device.type)
+        return
+    cfg = build_config(args)
+    world = data_parallel_size(device_count(device, args.devices),
+                               cfg.shapes.images_per_step)
+    if world == 1:
+        _train(args, cfg, device, args.threads)
+        return
+    log.info("data-parallel training over %d %s processes", world,
+             device.type)
+    launch(cmd_train, world, device.type, args)
+
+
+def _train_rank(args, device_type: str):
+    """One rank of a data-parallel run: joins the group (unless the
+    caller has), trains its rows of every batch on its local device and,
+    on rank 0 alone, logs, plots and writes the metrics and snapshots."""
+    from frcnn_tpu_torch.parallel import mesh
+
+    setup_logging(int(os.environ["RANK"]))
+    with mesh.rank_group(device_type) as device:
+        _train(args, build_config(args), device,
+               args.threads or mesh.host_threads(), shard=mesh.batch_shard())
+
+
+def _train(args, cfg, device, threads: int, shard=None):
+    """Training on ``device`` with ``threads`` decode threads per batch;
+    data-parallel, this process's ``shard``
+    (``parallel/mesh.py::batch_shard``): every rank assembles the same
+    whole batch (same seed) and the Trainer takes its rows."""
     from frcnn_tpu_torch.data.pipeline import (
         BatchIterator,
         PrefetchingIterator,
@@ -102,15 +184,10 @@ def cmd_train(args):
     from frcnn_tpu_torch.train.trainer import Trainer
     from frcnn_tpu_torch.utils.plotting import plot_training_progress
 
-    _require_file(args.train, "training manifest")
-    _require_file(args.restore, "checkpoint")
-    device = require_device(args.device)
-    cfg = build_config(args)
+    lead = shard is None or shard.rank == 0
     log.info("config: %s classes=%d scales=%s", args.cfg, cfg.class_count,
              cfg.scales)
-
-    it = BatchIterator(cfg, args.train, seed=cfg.seed,
-                       num_threads=args.threads)
+    it = BatchIterator(cfg, args.train, seed=cfg.seed, num_threads=threads)
     m = it.manifest
     log.info(
         "Training data loaded. Dataset: '%s'; Total files: %d; classes: %d; "
@@ -119,8 +196,9 @@ def cmd_train(args):
         len(m.get("background_files", [])),
     )
 
-    trainer = Trainer(cfg, device=device,
-                      metrics_path=f"{args.name}_metrics.jsonl")
+    trainer = Trainer(cfg, device=device, shard=shard,
+                      metrics_path=f"{args.name}_metrics.jsonl" if lead
+                      else None)
     if args.restore:
         trainer.restore_snapshot(args.restore)
         log.info("restored %s at step %d", args.restore, trainer.step)
@@ -128,14 +206,16 @@ def cmd_train(args):
     source = PrefetchingIterator(it, depth=args.prefetch) if args.prefetch \
         else it
     try:
-        _train_loop(args, cfg, trainer, source, plot_training_progress)
+        _train_loop(args, cfg, trainer, source, plot_training_progress,
+                    lead)
     finally:
         if source is not it:
             source.close()
         trainer.metrics_logger.close()
 
 
-def _train_loop(args, cfg, trainer, source, plot):
+def _train_loop(args, cfg, trainer, source, plot, lead: bool):
+    """``lead``: this process plots and writes the snapshots (rank 0)."""
     steps = args.steps or cfg.total_steps
     chunk = max(1, args.chunk)
     t_report = time.perf_counter()
@@ -165,10 +245,10 @@ def _train_loop(args, cfg, trainer, source, plot):
             )
             if metrics.get("skipped"):
                 log.warning("step %d: non-finite update — skipped", i)
-            if cfg.plot_interval and i % cfg.plot_interval == 0:
+            if lead and cfg.plot_interval and i % cfg.plot_interval == 0:
                 plot(args.name, trainer.stats)
         # snapshots at chunk boundaries, named with the true step
-        if cfg.snapshot_interval and (
+        if lead and cfg.snapshot_interval and (
             trainer.step // cfg.snapshot_interval
             > base // cfg.snapshot_interval
         ):
@@ -384,7 +464,8 @@ def parser() -> argparse.ArgumentParser:
         sp.add_argument("--opti", default=None, help="rmsprop | sgd | nag")
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--threads", type=int, default=0,
-                        help="native loader threads (0 = cpu count)")
+                        help="native loader threads (0 = the cores, shared "
+                        "out over the data-parallel ranks)")
         sp.add_argument("--prefetch", type=int, default=2,
                         help="batches prefetched ahead (0 = synchronous)")
 
@@ -395,6 +476,11 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--chunk", type=int, default=1,
                     help="train steps per metrics copy to the host "
                     "(Trainer.run_chunk; identical trajectory to --chunk 1)")
+    sp.add_argument("--devices", type=int, default=None,
+                    help="at most this many local devices, one process "
+                    "each (default: every visible card; 1 on the CPU); "
+                    "the step spreads over the largest count that "
+                    "divides images_per_step")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("demo", help="draw detections on validation images")
@@ -464,9 +550,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="[%(asctime)s] %(message)s")
+    setup_logging()
     args = parser().parse_args(argv)
     args.fn(args)
 

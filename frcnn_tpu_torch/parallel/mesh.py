@@ -13,11 +13,17 @@ A group is set up from the environment variables of ``torchrun`` (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) by
 :func:`init_from_env`, or by the caller with an explicit address
 (``torch.distributed.init_process_group("gloo", init_method=
-"tcp://localhost:<port>", rank=r, world_size=n)``).
+"tcp://localhost:<port>", rank=r, world_size=n)``). :func:`launch` starts
+the processes of one machine with those variables set, as ``torchrun``
+would; :func:`data_parallel_size` is the JAX ``Trainer``'s rule for how
+many devices a step spreads over.
 """
 
 from __future__ import annotations
 
+import contextlib
+import multiprocessing as mp
+import multiprocessing.connection
 import os
 import socket
 
@@ -35,12 +41,37 @@ def init_from_env(backend: str | None = None) -> None:
     dist.init_process_group(backend, init_method="env://")
 
 
+@contextlib.contextmanager
+def rank_group(device_type: str = "cuda"):
+    """This process as one rank of the group that ``torchrun``'s variables
+    describe: yields its :func:`local_device` (made current under CUDA)
+    with the group joined (NCCL on ``cuda``, gloo on ``cpu``), unless the
+    caller has joined it; a group joined here is destroyed at exit."""
+    device = local_device(device_type)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    joined = not dist.is_initialized()
+    if joined:
+        init_from_env("nccl" if device.type == "cuda" else "gloo")
+    try:
+        yield device
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def host_threads() -> int:
+    """This process's share of the machine's cores when every rank of the
+    group runs on this machine (its host threads, e.g. image decode)."""
+    return max(1, (os.cpu_count() or 1) // world_size())
 
 
 def local_device(device_type: str = "cuda") -> torch.device:
@@ -83,3 +114,73 @@ def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def data_parallel_size(available: int, images_per_step: int) -> int:
+    """How many devices a train step spreads over: the largest ``n <=
+    available`` that divides ``images_per_step`` (the rule of the JAX
+    package's ``Trainer`` built without a mesh, which takes every local
+    device)."""
+    n = max(1, available)
+    while n > 1 and images_per_step % n:
+        n -= 1
+    return n
+
+
+def _rank_main(fn, rank_: int, world: int, port: int, args) -> None:
+    """A child of :func:`launch`: ``torchrun``'s variables, then ``fn``."""
+    os.environ.update(RANK=str(rank_), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank_), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    fn(*args)
+
+
+def launch(fn, world: int, device_type: str, *args) -> None:
+    """Runs ``fn(*args)`` in ``world`` new processes of this machine
+    (``spawn``), each with ``torchrun``'s environment variables (rank ``r``
+    on local device ``r``, the group's address a free localhost port), so
+    that ``fn`` joins the group with :func:`rank_group`. ``fn`` and
+    ``args`` must pickle: a module-level function.
+
+    Returns when every process has exited 0. When one raises or exits
+    otherwise, the others are terminated (none is left waiting in a
+    collective) and this raises ``RuntimeError``; nothing is retried.
+
+    The libraries the processes load are built here first, once: the
+    CUDA kernels under ``cuda`` (``ops/cuda_lib.py::build``), and the
+    native host library (``data/native.py``, which the processes then only
+    load)."""
+    from frcnn_tpu_torch.data import native
+
+    if device_type == "cuda":
+        from frcnn_tpu_torch.ops import cuda_lib
+
+        cuda_lib.build()
+    native.available()
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, name=f"rank {r}",
+                         args=(fn, r, world, port, args))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        running = list(procs)
+        while running:
+            mp.connection.wait([p.sentinel for p in running])
+            for p in [p for p in running if p.exitcode is not None]:
+                running.remove(p)
+                if p.exitcode != 0:
+                    raise RuntimeError(
+                        f"data-parallel {p.name} of {world} exited with "
+                        f"code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            if p.pid is not None:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()

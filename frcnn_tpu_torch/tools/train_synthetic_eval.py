@@ -39,6 +39,13 @@ scene is written as a lossless PNG. So the files are ``img{i}.png`` where
 the JAX script writes ``.jpg``, with the same pixels as PIL reads from
 those, compression artefacts included.
 The first ``n_corrupt`` files hold the JAX script's corrupt bytes.
+
+Training spreads over every local card, as the JAX script's ``Trainer``
+spreads over every local device: over the largest count, up to
+``--devices``, that divides ``images_per_step``, one process each
+(``parallel/mesh.py::launch``; or one rank each under ``torchrun``).
+Rank 0 alone writes the dataset, prints, writes the snapshots and
+evaluates.
 """
 
 from __future__ import annotations
@@ -424,21 +431,29 @@ def models_of(cfg, ckpt_path: str):
     return pnet, cnet, ckpt
 
 
-def _train(args, cfg, manifest_path, device):
+def _train(args, cfg, manifest_path, device, threads: int = 0,
+           shard=None):
+    """Trains ``cfg`` to ``args.steps``, resuming from ``partial.ckpt``;
+    data-parallel, this process's ``shard`` of every whole batch, and only
+    rank 0 prints and writes."""
     from frcnn_tpu_torch.data.pipeline import (
         BatchIterator,
         PrefetchingIterator,
     )
     from frcnn_tpu_torch.train.trainer import Trainer
 
-    it = BatchIterator(cfg, manifest_path, seed=args.seed)
+    lead = shard is None or shard.rank == 0
+    it = BatchIterator(cfg, manifest_path, seed=args.seed,
+                       num_threads=threads)
     pre = PrefetchingIterator(it, depth=max(2, args.chunk + 2))
-    tr = Trainer(cfg, device=device,
-                 metrics_path=os.path.join(args.out, "metrics.jsonl"))
+    tr = Trainer(cfg, device=device, shard=shard,
+                 metrics_path=os.path.join(args.out, "metrics.jsonl")
+                 if lead else None)
     partial = os.path.join(args.out, "partial.ckpt")
     if os.path.exists(partial):
         tr.restore_snapshot(partial)
-        print(f"resumed from {partial} at step {tr.step}", flush=True)
+        if lead:
+            print(f"resumed from {partial} at step {tr.step}", flush=True)
     start_step = tr.step
     t0 = time.time()
     last_snap = tr.step
@@ -459,17 +474,18 @@ def _train(args, cfg, manifest_path, device):
                 metrics = [tr.run_step(x) for x in q[:k]]
             del q[:k]
             m = metrics[-1]
-            if tr.step % 25 < k or tr.step == k:
+            if lead and (tr.step % 25 < k or tr.step == k):
                 print(f"{tr.step}: loss {m['loss']:.4f} pcls "
                       f"{m['pcls']:.4f} preg {m['preg']:.4f} dcls "
                       f"{m['dcls']:.4f} dreg {m['dreg']:.4f} skip "
                       f"{m['skipped']:.0f} ({time.time() - t0:.0f}s)",
                       flush=True)
             if tr.step - last_snap >= args.snapshot_every:
-                tr.save_snapshot(partial)
+                if lead:
+                    tr.save_snapshot(partial)
                 last_snap = tr.step
             every = args.named_snapshot_every
-            if every and tr.step % every < k:
+            if lead and every and tr.step % every < k:
                 named = os.path.join(
                     args.out, f"step_{tr.step - tr.step % every:06d}.ckpt")
                 if not os.path.exists(named):
@@ -477,6 +493,8 @@ def _train(args, cfg, manifest_path, device):
     finally:
         pre.close()
         tr.metrics_logger.close()
+    if not lead:
+        return tr
     if args.steps >= start_step:
         tr.save_snapshot(os.path.join(args.out, "final.ckpt"))
     else:
@@ -485,15 +503,40 @@ def _train(args, cfg, manifest_path, device):
     return tr
 
 
-def main(argv=None) -> int:
-    from frcnn_tpu_torch.cli import require_device
+def _make_data(args) -> None:
+    """The scale's scenes, CSV and manifest under ``RUN/dataset``."""
     from frcnn_tpu_torch.data.importers import create_duplo_manifest
-    from frcnn_tpu_torch.data.pipeline import BatchIterator
-    from frcnn_tpu_torch.detect.detector import Detector
-    from frcnn_tpu_torch.detect.evaluation import evaluate_map
-    from frcnn_tpu_torch.models.factory import models_from_state_dicts
-    from frcnn_tpu_torch.ops.color import yuv2rgb
-    from frcnn_tpu_torch.utils.drawing import draw_rectangle, save_image
+
+    img_w, img_h, box_lo, box_hi, n_classes, _cfg_fn, maker = \
+        scale_spec(args.scale)
+    os.makedirs(args.out, exist_ok=True)
+    data_dir = os.path.join(args.out, "dataset")
+    csv = maker(data_dir, args.images, img_w, img_h, n_classes, box_lo,
+                box_hi, seed=args.seed)
+    create_duplo_manifest(f"synthetic-{args.scale}", csv, None,
+                          os.path.join(data_dir, "manifest.json"),
+                          validation_size=0.25, seed=args.seed)
+
+
+def _run_rank(args, device_type: str) -> int:
+    """One rank of a data-parallel run (``torchrun`` or
+    ``parallel/mesh.py::launch``): rank 0 writes the dataset while the
+    others wait, every rank trains its rows, rank 0 evaluates."""
+    import torch.distributed as dist
+
+    from frcnn_tpu_torch.parallel import mesh
+
+    with mesh.rank_group(device_type) as device:
+        shard = mesh.batch_shard()
+        if shard.rank == 0:
+            _make_data(args)
+        dist.barrier()
+        return _run(args, device, mesh.host_threads(), shard)
+
+
+def main(argv=None) -> int:
+    from frcnn_tpu_torch.cli import device_count, in_rank, require_device
+    from frcnn_tpu_torch.parallel.mesh import data_parallel_size, launch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", choices=list(SCALES), default="tiny")
@@ -501,6 +544,9 @@ def main(argv=None) -> int:
     ap.add_argument("--images", type=int, default=60)
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="at most this many local devices, one process "
+                    "each (default: every visible card; 1 on the CPU)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-count", type=int, default=24)
     ap.add_argument("--demo-count", type=int, default=4)
@@ -512,21 +558,37 @@ def main(argv=None) -> int:
                     help="if >0, keep a step-named copy of the snapshot "
                     "every N steps (step_NNNNNN.ckpt)")
     args = ap.parse_args(argv)
-    img_w, img_h, box_lo, box_hi, n_classes, cfg_fn, maker = \
-        scale_spec(args.scale)
+    *_, n_classes, cfg_fn, _maker = scale_spec(args.scale)
     device = require_device(args.device)
+    if in_rank():
+        return _run_rank(args, device.type)
+    world = data_parallel_size(device_count(device, args.devices),
+                               cfg_fn(n_classes).shapes.images_per_step)
+    if world > 1:
+        launch(_run_rank, world, device.type, args, device.type)
+        return 0
+    _make_data(args)
+    return _run(args, device)
 
-    os.makedirs(args.out, exist_ok=True)
+
+def _run(args, device, threads: int = 0, shard=None) -> int:
+    """Trains, then (rank 0 alone) evaluates and writes the loss curve,
+    ``result.json`` and the demo images."""
+    from frcnn_tpu_torch.data.pipeline import BatchIterator
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.detect.evaluation import evaluate_map
+    from frcnn_tpu_torch.models.factory import models_from_state_dicts
+    from frcnn_tpu_torch.ops.color import yuv2rgb
+    from frcnn_tpu_torch.utils.drawing import draw_rectangle, save_image
+
+    *_, n_classes, cfg_fn, _maker = scale_spec(args.scale)
     data_dir = os.path.join(args.out, "dataset")
-    csv = maker(data_dir, args.images, img_w, img_h, n_classes, box_lo,
-                box_hi, seed=args.seed)
     manifest_path = os.path.join(data_dir, "manifest.json")
-    create_duplo_manifest(f"synthetic-{args.scale}", csv, None,
-                          manifest_path, validation_size=0.25,
-                          seed=args.seed)
     cfg = cfg_fn(n_classes).replace(examples_base_path=data_dir,
                                     seed=args.seed, pallas_mode="on")
-    tr = _train(args, cfg, manifest_path, device)
+    tr = _train(args, cfg, manifest_path, device, threads, shard)
+    if shard is not None and shard.rank != 0:
+        return 0
 
     # the reference's "loss" series is pcls + preg (objective.lua:216)
     st = tr.stats
