@@ -22,6 +22,15 @@ Phases, each printing one flushed line with its seconds:
            (timed at 480x1000) and on the same ragged shapes, whose tile
            count is no multiple of the SM count (the persistent grids'
            partial last round)
+  api      the package's public API on the card: the nine lazy names of
+           ``frcnn_tpu_torch`` resolve; ``frcnn_tpu_torch.ops.nms`` and
+           ``per_class_nms`` at the detect's proposal size (B=8, 512 boxes
+           per image, 6 classes, the duplo thresholds, 128 picks), and an
+           unbatched ``nms`` of one image, each one launch of the NMS
+           kernel and no other kernel, indices and validity bitwise those
+           of the same call on CPU copies (the plain keep mask); times per
+           call; N = 2049 raises ValueError naming the kernel's limit,
+           with no launch
   kernels-int8  the int8 modes of the two block0 kernels against their
            plain versions at the int8 path's shapes, float32 and bf16
            planes with a random pad ring: block0's int8 output, the 2-conv
@@ -190,7 +199,8 @@ phase's training and evaluation, and for the ROI-pool forward and backward
 and the pool backward ``launches_train_large`` and
 ``device_ms_train_large``, per vgg_large train step and bucket,
 ``launches_cli`` by subcommand, ``launches_dryrun_real`` and
-``launches_bench`` by mode, ``launches_micro``; row 7's ``mm`` and
+``launches_bench`` by mode, ``launches_micro``, NMS's ``launches_api``
+and ``ms_api`` by public call; row 7's ``mm`` and
 ``mm_sync`` with ``library_device_ms``, their ``bf16`` mode and their
 ``chain`` shape, ``mm``'s ``chain_sweep``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -237,6 +247,9 @@ RAGGED = ((1, 66, 130), (2, 200, 330))
 # the vgg_large feature maps (the pnet's four ceil pools of each bucket)
 LARGE_FM = ((30, 63, 512), (63, 30, 512))
 
+# the plain NMS module; ``frcnn_tpu_torch.ops.nms`` is the function that
+# the package exports, as the JAX package's ``frcnn_tpu.ops.nms`` is
+NMS_MODULE = "frcnn_tpu_torch.ops.nms"
 KERNEL_MODULES = ("frcnn_tpu_torch.ops.nms_kernel",
                   "frcnn_tpu_torch.ops.roi_pool_kernel",
                   "frcnn_tpu_torch.ops.block0_kernel",
@@ -471,7 +484,7 @@ def _nms_stats(keep, boxes, valid, thr: float, max_out: int):
 
 
 def check_nms(gen):
-    from frcnn_tpu_torch.ops import nms as plain
+    plain = importlib.import_module(NMS_MODULE)
     from frcnn_tpu_torch.ops import nms_kernel as K
 
     out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
@@ -534,7 +547,7 @@ def check_nms_detect(phase: str, what: str, fn):
     """NMS on the inputs of one detect (``fn()``, both calls): the kernel's
     keep mask and slots bitwise its plain version's, each call's picks,
     kernel time (CUDA events, through the wrapper) and bound."""
-    from frcnn_tpu_torch.ops import nms as plain
+    plain = importlib.import_module(NMS_MODULE)
     from frcnn_tpu_torch.ops import nms_kernel as K
 
     t = time.perf_counter()
@@ -816,6 +829,85 @@ def check_block0_2conv(gen):
         del got, xi
         torch.cuda.empty_cache()
     return res
+
+
+API_N = 512          # the detect's proposals per image (duplo max_proposals)
+API_CLASSES = 6
+API_MAX_OUT = 128    # duplo max_detections
+
+
+def phase_api(kernels, smi: str):
+    """The package's public API on the card (see the module docstring);
+    adds ``launches_api`` and ``ms_api`` by call to the NMS kernel's
+    entry."""
+    import frcnn_tpu_torch
+    from frcnn_tpu_torch import ops
+    from frcnn_tpu_torch.detect.detector import CLASS_NMS_IOU, PROPOSAL_NMS_IOU
+    from frcnn_tpu_torch.ops import nms_kernel as K
+
+    t = time.perf_counter()
+    names = [getattr(frcnn_tpu_torch, n).__name__
+             for n in frcnn_tpu_torch.__all__]
+    if names != frcnn_tpu_torch.__all__:
+        raise AssertionError(f"api: top-level names resolve to {names}")
+    gen = torch.Generator().manual_seed(17)
+    boxes, _ = _nms_inputs(gen, API_N)
+    scores = torch.rand((B, API_N), generator=gen)
+    scores[:, 1::17] = scores[:, 0:-1:17][:, : scores[:, 1::17].shape[1]]
+    valid = torch.rand((B, API_N), generator=gen) > 0.1
+    classes = torch.randint(0, API_CLASSES, (B, API_N), generator=gen)
+    args = (boxes, scores.cuda(), classes.cuda(), valid.cuda())
+    calls = {
+        "nms": lambda b, s, c, v: ops.nms(b, s, v, PROPOSAL_NMS_IOU,
+                                          API_MAX_OUT),
+        "per_class_nms": lambda b, s, c, v: ops.per_class_nms(
+            b, s, c, v, API_CLASSES, CLASS_NMS_IOU, API_MAX_OUT),
+        "nms_unbatched": lambda b, s, c, v: ops.nms(
+            b[0], s[0], v[0], PROPOSAL_NMS_IOU, API_MAX_OUT),
+    }
+    entry = kernels["nms_keep_mask"]
+    entry["launches_api"], entry["ms_api"] = {}, {}
+    parts = []
+    for name, fn in calls.items():
+        _zero_launches()
+        idx, ok = fn(*args)
+        torch.cuda.synchronize()
+        launches = _launches()
+        if launches != {K.KERNEL.name: 1}:
+            raise AssertionError(f"api {name}: launches {launches}, "
+                                 f"expected one of {K.KERNEL.name}")
+        ref_idx, ref_ok = fn(*(a.cpu() for a in args))
+        if not (torch.equal(idx.cpu(), ref_idx)
+                and torch.equal(ok.cpu(), ref_ok)):
+            raise AssertionError(
+                f"api {name}: indices differ from the CPU copies' in "
+                f"{int((idx.cpu() != ref_idx).sum())} places")
+        ms = time_ms(lambda: fn(*args))
+        entry["launches_api"][name] = launches[K.KERNEL.name]
+        entry["ms_api"][name] = ms
+        picks = ok.reshape(-1, API_MAX_OUT).sum(1)
+        parts.append(f"{name}: 1 launch, picks per image "
+                     f"{int(picks.min())}-{int(picks.max())}, {ms:.4f} ms")
+    n = K.MAX_BOXES + 1
+    big = (torch.zeros((1, n, 4), device="cuda"),
+           torch.zeros((1, n), device="cuda"),
+           torch.zeros((1, n), dtype=torch.int64, device="cuda"),
+           torch.ones((1, n), dtype=torch.bool, device="cuda"))
+    for name in ("nms", "per_class_nms"):
+        _zero_launches()
+        try:
+            calls[name](*big)
+        except ValueError as e:
+            if str(K.MAX_BOXES) not in str(e) or _launches():
+                raise AssertionError(f"api {name} N={n}: {e}; launches "
+                                     f"{_launches()}") from e
+        else:
+            raise AssertionError(f"api {name} N={n}: no ValueError")
+    log("api", f"nine top-level names resolve; B={B} N={API_N} "
+        f"{API_CLASSES} classes thr {PROPOSAL_NMS_IOU}/{CLASS_NMS_IOU} "
+        f"max_out {API_MAX_OUT}, indices bitwise the CPU copies': "
+        + "; ".join(parts) + f"; N={n} raises ValueError, no launch; "
+        f"{smi}", t)
 
 
 def phase_kernels():
@@ -3790,6 +3882,7 @@ def main() -> int:
     name, smi = phase_env()
     phase_build()
     kernels, two_conv = phase_kernels()
+    phase_api(kernels, smi)
     kernels.update(phase_kernels_int8(two_conv))
     phase_probe(kernels)
     phase_detect(kernels)
@@ -3826,7 +3919,8 @@ def main() -> int:
                       "device_ms_train_step", "device_ms_large",
                       "launches_data", "launches_train_large",
                       "device_ms_train_large", "launches_cli",
-                      "launches_dryrun_real", "launches_bench"):
+                      "launches_dryrun_real", "launches_bench",
+                      "launches_api", "ms_api"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

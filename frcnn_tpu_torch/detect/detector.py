@@ -50,7 +50,7 @@ from frcnn_tpu_torch.ops import (
     nms_kernel,
     roi_pool_kernel,
 )
-from frcnn_tpu_torch.ops import nms as nms_plain
+from frcnn_tpu_torch.ops.nms import class_offset_boxes, plain_nms
 from frcnn_tpu_torch.ops import roi_pool as pool_plain
 from frcnn_tpu_torch.ops.color import unwire_uint8
 from frcnn_tpu_torch.ops.normalization import normalize_image, normalize_s2d
@@ -253,7 +253,7 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         batched_nms = nms_kernel.cuda_nms
         batched_pool = roi_pool_kernel.adaptive_max_pool_valid
     else:
-        batched_nms = nms_plain.nms
+        batched_nms = plain_nms
         batched_pool = pool_plain.adaptive_max_pool
     norm_kw = dict(method=cfg.normalization.method,
                    width=cfg.normalization.width,
@@ -313,9 +313,8 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
             return _cut_sum(prop_boxes, prop_score, nms_idx, prop_valid)
 
         fw, fh = fm_loc.feature_map_size_t(w, h)
-        fr = pool_plain.prepare_roi_rects(
-            fm_loc.input_to_feature_rect_t(prop_boxes),
-            fw[:, None].float(), fh[:, None].float())
+        fr = pool_plain.roi_pool_feature_rects(
+            fm_loc, prop_boxes, fw[:, None].float(), fh[:, None].float())
         pooled = batched_pool(fm.contiguous(), fr, prop_valid, kh, kw)
         pooled = pooled.reshape(bsz, D, -1)
         if stop_after == "pool":
@@ -328,7 +327,7 @@ def build_detect_fn(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         cls = torch.argmax(clogp, dim=-1)
         conf = torch.exp(clogp.amax(dim=-1))
         accept = prop_valid & (cls != bg) & (conf > conf_gate)
-        shifted = nms_plain.class_offset_boxes(refined, cls, accept)
+        shifted = class_offset_boxes(refined, cls, accept)
         fin_idx, f_valid = batched_nms(
             shifted, torch.log(torch.clamp(conf, min=1e-20)), accept,
             CLASS_NMS_IOU, D)

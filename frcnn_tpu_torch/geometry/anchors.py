@@ -9,7 +9,7 @@ order is (tap, aspect, y, x). An anchor map's channels ``[6j, 6j+6)`` hold
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,52 @@ class AnchorGenerator:
             s, bmin, bmax = loc.scale_y, loc.offset_min_y, loc.offset_max_y
         c0 = (s + bmin + bmax) / 2.0
         return s * np.arange(n_cells, dtype=np.float64) + c0
+
+    def lookup_tables(self, extent: int = 200):
+        """The reference's ``self.w`` / ``self.h`` tables (``Anchors.lua:15-19,
+        38-57``), numpy [num_scales, 3, extent, 2] each: entry [i, j, c] is
+        the (min, max) extent of the anchor at 1-based feature coordinate
+        c+1."""
+        ns = len(self.scales)
+        w = np.zeros((ns, 3, extent, 2))
+        h = np.zeros((ns, 3, extent, 2))
+        for i, loc in enumerate(self.tap_localizers):
+            cx = self._centers(loc, extent, "x")
+            cy = self._centers(loc, extent, "y")
+            for j, (bw, bh) in enumerate(aspect_dims(self.scales[i])):
+                w[i, j, :, 0] = cx - bw / 2
+                w[i, j, :, 1] = cx + bw / 2
+                h[i, j, :, 0] = cy - bh / 2
+                h[i, j, :, 1] = cy + bh / 2
+        return w, h
+
+    def get(self, tap: int, aspect: int, y: int, x: int) -> np.ndarray:
+        """One anchor box (numpy [4]) by (tap, aspect, feature y, feature
+        x), all 0-based: ``Anchors:get`` (``Anchors.lua:60-67``) is the
+        1-based form."""
+        cx = self._centers(self.tap_localizers[tap], x + 1, "x")[x]
+        cy = self._centers(self.tap_localizers[tap], y + 1, "y")[y]
+        bw, bh = aspect_dims(self.scales[tap])[aspect]
+        return np.array([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2])
+
+    def flatten_tap_outputs(self, tap_outputs: Sequence[torch.Tensor]
+                            ) -> torch.Tensor:
+        """Anchor maps of one image (NHWC ``[H, W, 18]`` each) -> the
+        canonical flat ``[A, 6]``: per tap ``[H, W, 3, 6] -> [3, H, W, 6]``,
+        so that aspect is outermost within the tap."""
+        return torch.cat([
+            out.reshape(h, w, 3, 6).permute(2, 0, 1, 3).reshape(-1, 6)
+            for out, (h, w) in zip(tap_outputs, self.tap_dims)])
+
+    def unflatten_to_tap_deltas(self, flat: torch.Tensor
+                                ) -> List[torch.Tensor]:
+        """Inverse of :meth:`flatten_tap_outputs`: ``[A, 6]`` -> one
+        ``[H, W, 18]`` map per tap."""
+        outs = []
+        for (s, e), (h, w) in zip(self.flat_slices(), self.tap_dims):
+            x = flat[s:e].reshape(3, h, w, 6)
+            outs.append(x.permute(1, 2, 0, 3).reshape(h, w, 18))
+        return outs
 
     def flat_slices(self) -> List[Tuple[int, int]]:
         """[start, end) of each tap's anchors in the flat order."""

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,19 +85,25 @@ class Localizer:
         self.offset_min_x, self.offset_min_y = z[0], z[1]
         self.offset_max_x, self.offset_max_y = z[2], z[3]
 
-    def feature_to_input_rect(self, min_x, min_y, max_x, max_y):
-        """``Localizer:featureToInputRect`` (``Localizer.lua:69-79``)."""
-        for l in reversed(self.layers):
+    def feature_to_input_rect(self, min_x, min_y, max_x, max_y,
+                              layer_index: Optional[int] = None):
+        """``Localizer:featureToInputRect`` (``Localizer.lua:69-79``) through
+        the first ``layer_index`` layers (default: all of them)."""
+        n = len(self.layers) if layer_index is None else layer_index
+        for l in reversed(self.layers[:n]):
             min_x = min_x * l.dW - l.padW
             min_y = min_y * l.dH - l.padH
             max_x = max_x * l.dW - l.padW + l.kW - l.dW
             max_y = max_y * l.dH - l.padH + l.kH - l.dH
         return (min_x, min_y, max_x, max_y)
 
-    def input_to_feature_rect(self, min_x, min_y, max_x, max_y):
+    def input_to_feature_rect(self, min_x, min_y, max_x, max_y,
+                              layer_index: Optional[int] = None):
         """``Localizer:inputToFeatureRect`` (``Localizer.lua:41-67``) on
-        host scalars; returns integer (floor-min, ceil-max) coordinates."""
-        for l in self.layers:
+        host scalars through the first ``layer_index`` layers (default: all
+        of them); returns integer (floor-min, ceil-max) coordinates."""
+        n = len(self.layers) if layer_index is None else layer_index
+        for l in self.layers[:n]:
             if l.dW < l.kW:
                 min_x -= l.kW - l.dW
                 max_x += l.kW - l.dW

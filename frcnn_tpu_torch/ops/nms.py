@@ -17,6 +17,13 @@ kernel computes (``ops/pallas_nms.py::pallas_nms_keep_mask``):
 :func:`nms_keep_slots` is the plain version of the CUDA kernel in
 ``ops/nms_kernel.py``: the same IoU, in the same operation order, so the
 two agree bit for bit, and the same compaction of the keep mask.
+
+The public entries :func:`nms`, :func:`per_class_nms` and
+:func:`nms_indices_sorted` take the JAX package's arguments, unbatched or
+with a leading batch axis. They run the plain keep mask on CPU tensors and
+the CUDA kernel on CUDA tensors (``nms_kernel.nms_keep_slots``, which
+raises past ``nms_kernel.MAX_BOXES`` boxes). :func:`plain_nms` is the
+batched plain path on any device, for the detector's reference path.
 """
 
 from __future__ import annotations
@@ -113,10 +120,65 @@ def sorted_nms(boxes, scores, valid, iou_threshold: float, max_out: int,
     return indices.to(torch.int32), slot_valid
 
 
-def nms(boxes, scores, valid, iou_threshold: float, max_out: int):
-    """Batched NMS through the plain keep mask (see :func:`sorted_nms`)."""
+def plain_nms(boxes, scores, valid, iou_threshold: float, max_out: int):
+    """Batched NMS through the plain keep mask on any device (see
+    :func:`sorted_nms`)."""
     return sorted_nms(boxes, scores, valid, iou_threshold, max_out,
                       nms_keep_slots)
+
+
+def resolve_nms_scores(boxes, scores=None):
+    """The reference's score argument (``nms.lua:37-43``): ``None`` orders
+    by ``max_y``, the string ``'area'`` by the +1-pixel box area, an
+    ``int`` selects a box column (0-based), and anything else is the score
+    tensor itself."""
+    if scores is None:
+        return boxes[..., 3]
+    if isinstance(scores, str):
+        if scores != "area":
+            raise ValueError(f"unknown nms scores string: {scores!r}")
+        return ((boxes[..., 2] - boxes[..., 0] + 1.0)
+                * (boxes[..., 3] - boxes[..., 1] + 1.0))
+    if isinstance(scores, int):
+        return boxes[..., scores]
+    return scores
+
+
+def nms_indices_sorted(boxes_sorted, valid_sorted, iou_threshold: float,
+                       max_out: int):
+    """Greedy NMS over boxes already in processing order, [N, 4] / [N] or
+    [B, N, 4] / [B, N]. Returns (keep_slots [..., max_out] int32, the
+    sorted positions of the picks, -1 padded; keep_valid [..., max_out]
+    bool)."""
+    from frcnn_tpu_torch.ops import nms_kernel
+
+    one = valid_sorted.dim() == 1
+    if one:
+        boxes_sorted, valid_sorted = boxes_sorted[None], valid_sorted[None]
+    _, slots = nms_kernel.nms_keep_slots(
+        boxes_sorted.float().contiguous(), valid_sorted.bool().contiguous(),
+        iou_threshold, max_out)
+    slots = slots[0] if one else slots
+    return slots, slots >= 0
+
+
+def nms(boxes, scores, valid, iou_threshold: float, max_out: int):
+    """Sort (the reference's tie order) and greedy suppression.
+
+    boxes [N, 4] or [B, N, 4]; scores of the same leading shape, or
+    ``None`` / ``'area'`` / an int column (:func:`resolve_nms_scores`);
+    valid bool of the same leading shape. Returns (indices [..., max_out]
+    int32 into the original order, -1 padded; keep_valid [..., max_out]
+    bool), picks in descending score order."""
+    from frcnn_tpu_torch.ops import nms_kernel
+
+    scores = resolve_nms_scores(boxes, scores)
+    one = valid.dim() == 1
+    if one:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    indices, keep_valid = nms_kernel.cuda_nms(boxes, scores, valid.bool(),
+                                              iou_threshold, max_out)
+    return (indices[0], keep_valid[0]) if one else (indices, keep_valid)
 
 
 def class_offset_boxes(boxes, classes, valid):
@@ -130,3 +192,11 @@ def class_offset_boxes(boxes, classes, valid):
         + 2.0
     )
     return boxes + (classes.to(boxes.dtype) * span)[..., None]
+
+
+def per_class_nms(boxes, scores, classes, valid, num_classes: int,
+                  iou_threshold: float, max_out: int):
+    """Per-class NMS in one :func:`nms` through the coordinate-offset trick
+    (``Detector.lua:124-136``); ``num_classes`` is not needed by it."""
+    shifted = class_offset_boxes(boxes, classes, valid)
+    return nms(shifted, scores, valid, iou_threshold, max_out)

@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-from frcnn_tpu_torch.ops import nms as plain
+from frcnn_tpu_torch.ops.nms import nms_keep_slots as plain_keep_slots
+from frcnn_tpu_torch.ops.nms import sorted_nms
 from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
 
 MAX_BOXES = 2048  # shared memory: 20 bytes per box, under the 48 KB default
@@ -39,8 +40,8 @@ def nms_keep_slots(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     processing order. Returns (keep mask [B, N] bool, slots [B, max_out]
     int32: the sorted positions of the picks in pick order, -1 padded)."""
     if boxes_sorted.device.type == "cpu":
-        return plain.nms_keep_slots(boxes_sorted, valid_sorted,
-                                    iou_threshold, max_out)
+        return plain_keep_slots(boxes_sorted, valid_sorted, iou_threshold,
+                                max_out)
     B, N = valid_sorted.shape
     check_cuda("boxes_sorted", boxes_sorted, torch.float32, (B, N, 4))
     check_cuda("valid_sorted", valid_sorted, torch.bool, (B, N))
@@ -66,7 +67,8 @@ def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
 
 
 def cuda_nms(boxes, scores, valid, iou_threshold: float, max_out: int):
-    """Batched drop-in for ``ops/nms.py::nms``: [B, N, 4] / [B, N] inputs,
-    returns (indices [B, max_out] int32, -1 padded; valid [B, max_out])."""
-    return plain.sorted_nms(boxes.float(), scores, valid, iou_threshold,
-                            max_out, nms_keep_slots)
+    """Batched drop-in for ``ops/nms.py::plain_nms`` through the kernel:
+    [B, N, 4] / [B, N] inputs, returns (indices [B, max_out] int32, -1
+    padded; valid [B, max_out])."""
+    return sorted_nms(boxes.float(), scores, valid, iou_threshold, max_out,
+                      nms_keep_slots)

@@ -36,6 +36,14 @@ def prepare_roi_rects(feature_rects, fm_w, fm_h):
     return torch.stack([x0, y0, x1, y1], dim=-1)
 
 
+def roi_pool_feature_rects(localizer, input_rects, fm_w, fm_h):
+    """Input-space rects -> prepared integer feature rects: the whole
+    coordinate path of ``extract_roi_pooling_input`` (``objective.lua:5-13``),
+    ``localizer.input_to_feature_rect_t`` then :func:`prepare_roi_rects`."""
+    return prepare_roi_rects(localizer.input_to_feature_rect_t(input_rects),
+                             fm_w, fm_h)
+
+
 def _bin_windows(start, end, k: int, size: int, window: int):
     """Per rect and bin: the ``window`` cell indices starting at the bin's
     first cell (clamped into the map) and the mask of those inside the

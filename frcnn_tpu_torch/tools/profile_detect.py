@@ -145,7 +145,7 @@ def stage_bodies(S: Setup, stages):
     from frcnn_tpu_torch.detect.detector import select_proposals
     from frcnn_tpu_torch.geometry.matching import compact_mask
     from frcnn_tpu_torch.ops import block0_kernel, nms_kernel
-    from frcnn_tpu_torch.ops import nms as nms_plain
+    from frcnn_tpu_torch.ops.nms import plain_nms
     from frcnn_tpu_torch.ops import roi_pool as pool_plain
     from frcnn_tpu_torch.ops import roi_pool_kernel
     from frcnn_tpu_torch.ops.normalization import (
@@ -214,7 +214,7 @@ def stage_bodies(S: Setup, stages):
         tsc = torch.from_numpy(
             rngk.uniform(-1, 0, (bs, K)).astype(np.float32)).to(dev)
         ones = torch.ones((bs, K), dtype=torch.bool, device=dev)
-        nms = nms_kernel.cuda_nms if pallas else nms_plain.nms
+        nms = nms_kernel.cuda_nms if pallas else plain_nms
         out.append(("nms(K->D)" + ("[pallas]" if pallas else ""),
                     lambda: nms(tb, tsc, ones, 0.25, D)))
 
@@ -229,9 +229,8 @@ def stage_bodies(S: Setup, stages):
         valid = torch.ones((bs, D), dtype=torch.bool, device=dev)
 
         def feature_rects():
-            return pool_plain.prepare_roi_rects(
-                fm_loc.input_to_feature_rect_t(rects), fw[:, None].float(),
-                fh[:, None].float())
+            return pool_plain.roi_pool_feature_rects(
+                fm_loc, rects, fw[:, None].float(), fh[:, None].float())
 
         kernel = roi_pool_kernel.adaptive_max_pool_valid
         if "pool" in stages:

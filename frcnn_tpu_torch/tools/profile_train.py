@@ -256,9 +256,8 @@ def _objparts(S: Setup, gen):
         valid = torch.cat([lab.pos_valid, lab.neg_valid], dim=1)
         loc = gen.fm_localizer
         fw, fh = loc.feature_map_size_t(w, h)
-        pr = roi_plain.prepare_roi_rects(loc.input_to_feature_rect_t(rects),
-                                         fw[:, None].float(),
-                                         fh[:, None].float())
+        pr = roi_plain.roi_pool_feature_rects(loc, rects, fw[:, None].float(),
+                                              fh[:, None].float())
         return pool(fm.contiguous(), pr, valid, kh, kw)
 
     return [("norm", norm), ("norm+pnet", pnet), ("label", labels),

@@ -306,9 +306,8 @@ def build_objective(cfg: Config, gen: AnchorGenerator, pnet, cnet,
         roi_rects = torch.cat([pos_gt_boxes, neg_a_boxes], dim=1)
         roi_valid = torch.cat([labels.pos_valid, labels.neg_valid], dim=1)
         fw, fh = fm_loc.feature_map_size_t(w, h)
-        rects = roi_plain.prepare_roi_rects(
-            fm_loc.input_to_feature_rect_t(roi_rects),
-            fw[:, None].float(), fh[:, None].float())
+        rects = roi_plain.roi_pool_feature_rects(
+            fm_loc, roi_rects, fw[:, None].float(), fh[:, None].float())
         pooled = pool(fm.contiguous(), rects, roi_valid, kh, kw)
         pooled = pooled.reshape(bsz, R, kh * kw * fm.shape[-1])
 

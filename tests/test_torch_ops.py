@@ -32,6 +32,8 @@ Tolerances:
   1e-2 / atol 1e-2, one bf16 rounding step.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,10 +57,12 @@ from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
 from frcnn_tpu_torch.ops import pool_bwd as tpool
 from frcnn_tpu_torch.ops import pool_bwd_kernel
 from frcnn_tpu_torch.ops import color as tcolor
-from frcnn_tpu_torch.ops import nms as tnms
 from frcnn_tpu_torch.ops import normalization as tnorm
 from frcnn_tpu_torch.ops import roi_pool as troi
 from tests.tiny import tiny_config
+
+# the module: the package exports the function ``nms`` under its name
+tnms = importlib.import_module("frcnn_tpu_torch.ops.nms")
 
 
 @pytest.fixture(autouse=True)
