@@ -14,7 +14,14 @@ Phases, each printing one flushed line with its seconds:
            computes the same function, that call; the NMS keep mask and
            slots bitwise also on the kernel's 64-box chunk edges (N and
            max_out), NaN and infinite coordinates, an image with no valid
-           box and N = 2048, with the picks per image; the ROI pool bitwise also
+           box and N = 2048 (the most every block stages whole), with the
+           picks per image; past that, where each block of the cluster
+           stages its share of the image, at B=8, IoU 0.7 and 300 picks:
+           N = 2049, 6000, 35232 (the most anchors of any bucket) and the
+           kernel's limit (``max_boxes()`` on the card, equal to
+           ``MAX_BOXES``), N = 2049 with 1000 picks, and NaN and infinite
+           coordinates at N = 2500; each with its launch, kernel ms and
+           bound (plain ms at 6000); the ROI pool bitwise also
            at C=512 on both vgg_large maps, at the train step's 224 slots
            and on small edge cases, float32 and bf16; block0 also on two
            ragged shapes (both slope signs) with the count of bf16 values
@@ -29,8 +36,9 @@ Phases, each printing one flushed line with its seconds:
            unbatched ``nms`` of one image, each one launch of the NMS
            kernel and no other kernel, indices and validity bitwise those
            of the same call on CPU copies (the plain keep mask); times per
-           call; N = 2049 raises ValueError naming the kernel's limit,
-           with no launch
+           call; ``nms`` and ``per_class_nms`` at N = 2049 and N = 6000, each
+           one launch, bitwise the CPU copies'; N past the kernel's limit
+           raises ValueError naming it, with no launch
   kernels-int8  the int8 modes of the two block0 kernels against their
            plain versions at the int8 path's shapes, float32 and bf16
            planes with a random pad ring: block0's int8 output, the 2-conv
@@ -67,6 +75,12 @@ Phases, each printing one flushed line with its seconds:
            NMS keep masks and slots bitwise on both calls of a detect
            (a hook on ``nms_kernel.nms_keep_slots``), with each call's
            picks, time and bound
+  detect-6000  the same Detector at Faster R-CNN's published test setting,
+           6000 boxes into the proposal NMS and 300 out: float32 kernels
+           against plain versions (matched by class and box), bf16
+           ms/batch, device ms per detect, launches (2 of row 1 per
+           detect), and row 1 on both calls of a detect (N = 6000 and the
+           per-class N = 300), bitwise, with each call's device ms
   profile  device time of the bf16 serving batch by kernel group
            (torch.profiler), and the device's busy share: that device
            time over the wall time of the same batches run without the
@@ -131,7 +145,16 @@ Phases, each printing one flushed line with its seconds:
            trainer's weights in the serving Detector and evaluate_map over
            the validation files (the result, the block0, NMS and ROI-pool
            launches, the wall time); float32 collect_detections through the
-           kernels against the plain versions on the same batches
+           kernels against the plain versions on the same batches; then
+           JPEG without the native library or PIL: every fixture of
+           ``tools/jpeg_fixtures`` through ``data/jpeg.py``, its RGB
+           bytes' SHA-256 equal to PIL's in the fixtures' SOURCES.md (the
+           truncated one refused with ValueError), ms per frame of the
+           500x375 q90 4:2:0 one beside the PNG reader's on the same
+           pixels; ``import-imagenet`` over the fixtures as an ILSVRC DET
+           tree with VOC XML annotations, then vgg_large ``train --steps 2
+           --plot 0`` from it (imagenet config, bf16, kernels on, B=2):
+           finite losses, the train kernels' launches
   train-large  vgg_large training at full width (imagenet config, 201
            classes, bf16, float32 masters, RMSprop, kernels on), B=8, one
            Trainer taking 480x1000 and 1000x480 batches: a float32 step
@@ -200,7 +223,10 @@ and the pool backward ``launches_train_large`` and
 ``device_ms_train_large``, per vgg_large train step and bucket,
 ``launches_cli`` by subcommand, ``launches_dryrun_real`` and
 ``launches_bench`` by mode, ``launches_micro``, NMS's ``launches_api``
-and ``ms_api`` by public call; row 7's ``mm`` and
+and ``ms_api`` by public call, its ``large_n`` cases (N past 2048: kernel
+ms, launches, bound) and ``published`` (the 6000 -> 300 detect: ms and
+device ms per detect, device ms by N), the ROI pool's
+``launches_data_jpeg`` (the vgg_large steps from JPEG); row 7's ``mm`` and
 ``mm_sync`` with ``library_device_ms``, their ``bf16`` mode and their
 ``chain`` shape, ``mm``'s ``chain_sweep``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -220,6 +246,7 @@ import io
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -392,9 +419,7 @@ def _nms_edge_inputs(gen):
     processing order: the kernel's 64-box chunk edges in N and in max_out
     (more survivors than max_out), NaN and infinite coordinates (a pick
     reads them as the Pallas kernel does), an image with no valid box, and
-    N = MAX_BOXES."""
-    from frcnn_tpu_torch.ops.nms_kernel import MAX_BOXES
-
+    N = 2048, the most that every block of the cluster stages whole."""
     def clutter(b, n):
         xy = torch.randint(0, 120, (b, n, 2), generator=gen).float()
         wh = torch.randint(4, 50, (b, n, 2), generator=gen).float()
@@ -426,13 +451,38 @@ def _nms_edge_inputs(gen):
     boxes, valid = clutter(3, 96)
     valid[1] = False
     cases.append(("an image with no valid box", boxes, valid, 0.1, 64))
-    H, W = IMAGE_HW
-    xy = torch.rand((B, MAX_BOXES, 2), generator=gen) * torch.tensor(
-        [W - 60.0, H - 60.0])
-    wh = torch.randint(8, 60, (B, MAX_BOXES, 2), generator=gen).float()
-    cases.append((f"N={MAX_BOXES}", torch.cat([xy, xy + wh], -1).floor(),
-                  torch.rand((B, MAX_BOXES), generator=gen) > 0.1, 0.25,
-                  128))
+    cases.append(("N=2048", *_scattered(gen, B, 2048), 0.25, 128))
+    return [(nm, b.cuda(), v.cuda(), t, m) for nm, b, v, t, m in cases]
+
+
+def _scattered(gen, b: int, n: int, span=(800.0, 450.0), lo=8, hi=60):
+    """[b, n] floored boxes scattered over ``span``, 10% invalid (CPU)."""
+    xy = torch.rand((b, n, 2), generator=gen) * torch.tensor(
+        [span[0] - hi, span[1] - hi])
+    wh = torch.randint(lo, hi, (b, n, 2), generator=gen).float()
+    return (torch.cat([xy, xy + wh], -1).floor(),
+            torch.rand((b, n), generator=gen) > 0.1)
+
+
+def _nms_large_inputs(gen):
+    """(name, boxes, valid, thr, max_out) on the card past 2048 boxes,
+    where each block stages only its share of the image: the published
+    proposal NMS (IoU 0.7, 300 picks) at N = 2049, 6000, 35232 (the most
+    anchors of any bucket) and the kernel's limit, B = 8; many picks over
+    many chunks (N = 2049, 1000 picks); and NaN and infinite coordinates
+    at N = 2500."""
+    from frcnn_tpu_torch.ops.nms_kernel import MAX_BOXES
+
+    cases = [(f"N={n}", *_scattered(gen, B, n, (1000.0, 1000.0), 8, 160),
+              0.7, 300) for n in (2049, 6000, 35232, MAX_BOXES)]
+    cases.append(("N=2049 1000 picks", *_scattered(
+        gen, 2, 2049, (3000.0, 3000.0), 8, 40), 0.25, 1000))
+    boxes, valid = _scattered(gen, 3, 2500, (1000.0, 1000.0), 8, 160)
+    boxes[1, 2100::97, 1] = float("nan")    # later boxes NaN
+    valid[2, 2300:2302] = False             # invalid boxes, NaN and inf
+    boxes[2, 2300, 3] = float("nan")
+    boxes[2, 2301, 0] = float("inf")
+    cases.append(("N=2500 NaN and inf", boxes, valid, 0.5, 300))
     return [(nm, b.cuda(), v.cuda(), t, m) for nm, b, v, t, m in cases]
 
 
@@ -453,21 +503,34 @@ def _nms_equal(K, plain, boxes, valid, thr: float, max_out: int, what: str):
 
 def _nms_ious(boxes, valid, keep, thr: float) -> int:
     """The IoUs greedy NMS needs on these (finite) inputs: one for each
-    kept box against each later box still alive when it is kept."""
-    x0, y0, x1, y1 = boxes.unbind(-1)
-    area = (x1 - x0 + 1.0) * (y1 - y0 + 1.0)
-    iw = (torch.minimum(x1[:, None, :], x1[:, :, None])
-          - torch.maximum(x0[:, None, :], x0[:, :, None]) + 1.0).clamp(min=0)
-    ih = (torch.minimum(y1[:, None, :], y1[:, :, None])
-          - torch.maximum(y0[:, None, :], y0[:, :, None]) + 1.0).clamp(min=0)
-    inter = iw * ih
-    sup = ~(inter / (area[:, None, :] + area[:, :, None] - inter) <= thr)
-    by_kept = (sup & keep[:, :, None]).int()          # [b, kept i, j]
-    before = by_kept.cumsum(1) - by_kept              # kept k < i on j
-    n = keep.shape[1]
-    later = torch.ones(n, n, dtype=torch.bool, device=keep.device).triu(1)
-    need = valid[:, None, :] & (before == 0) & later & keep[:, :, None]
-    return int(need.sum())
+    kept box against each later valid box still alive when it is kept.
+    Per image, over the kept rows only (in chunks), carrying the count of
+    earlier picks that suppress each box: memory O(rows x N)."""
+    total = 0
+    n = boxes.shape[1]
+    later = torch.arange(n, device=boxes.device)
+    for b in range(boxes.shape[0]):
+        x0, y0, x1, y1 = boxes[b].unbind(-1)
+        area = (x1 - x0 + 1.0) * (y1 - y0 + 1.0)
+        kept = keep[b].nonzero()[:, 0]
+        before = torch.zeros(n, dtype=torch.int32, device=boxes.device)
+        step = max(1, (1 << 24) // n)
+        for k in kept.split(step):
+            iw = (torch.minimum(x1[None, :], x1[k, None])
+                  - torch.maximum(x0[None, :], x0[k, None]) + 1.0).clamp(
+                      min=0)
+            ih = (torch.minimum(y1[None, :], y1[k, None])
+                  - torch.maximum(y0[None, :], y0[k, None]) + 1.0).clamp(
+                      min=0)
+            inter = iw * ih
+            sup = (~(inter / (area[None, :] + area[k, None] - inter)
+                     <= thr)).int()
+            prior = before[None, :] + sup.cumsum(0) - sup   # picks before
+            need = valid[b][None, :] & (prior == 0) & (later[None, :]
+                                                       > k[:, None])
+            total += int(need.sum())
+            before += sup.sum(0, dtype=torch.int32)
+    return total
 
 
 def _nms_stats(keep, boxes, valid, thr: float, max_out: int):
@@ -511,12 +574,40 @@ def check_nms(gen):
         picks = keep.sum(1).tolist()
         text = f"{picks}" if len(picks) <= 3 else \
             f"{min(picks)}-{max(picks)} per image"
-        if valid.shape[1] == K.MAX_BOXES:
+        if valid.shape[1] == 2048:
             ms = time_ms(lambda: K.nms_keep_slots(boxes, valid, thr, m))
             text += f", kernel {ms:.4f} ms"
         print(f"[kernels] nms {name}: keep masks and slots equal; picks "
               f"{text}", flush=True)
     log("kernels", "nms edge cases: keep masks and slots equal", t)
+    t = time.perf_counter()
+    if K.max_boxes() != K.MAX_BOXES:
+        raise AssertionError(f"nms: the kernel takes {K.max_boxes()} boxes "
+                             f"on this card, the wrapper {K.MAX_BOXES}")
+    out["large_n"] = {}
+    for name, boxes, valid, thr, m in _nms_large_inputs(gen):
+        before = K.KERNEL.launches
+        keep, _ = _nms_equal(K, plain, boxes, valid, thr, m, name)
+        launches = K.KERNEL.launches - before
+        ms = time_ms(lambda: K.nms_keep_slots(boxes, valid, thr, m), reps=5,
+                     warmup=1)
+        picks, bms, by = _nms_stats(keep, boxes, valid, thr, m)
+        r = {"B": valid.shape[0], "N": valid.shape[1], "max_out": m,
+             "ms": ms, "launches": launches, "bound_ms": bms,
+             "bound_by": by}
+        if name == "N=6000":
+            r["plain_ms"] = time_ms(
+                lambda: plain.nms_keep_slots(boxes, valid, thr, m), reps=3,
+                warmup=0)
+        out["large_n"][name] = r
+        extra = f", plain {r['plain_ms']:.3f} ms" if "plain_ms" in r else ""
+        print(f"[kernels] nms_keep_mask B={r['B']} {name} thr={thr} "
+              f"max_out={m}: keep masks and slots bitwise the plain "
+              f"version's, {launches} launch; {picks}; kernel {ms:.4f} ms"
+              f"{extra}, bound {bms:.6f} ms ({by})", flush=True)
+    log("kernels", f"nms past 2048 boxes (each block stages its share): "
+        f"equal up to the limit, N = {K.MAX_BOXES} = max_boxes() on this "
+        f"card", t)
     out["library_ms"] = None
     return out
 
@@ -543,10 +634,12 @@ def _kept_nms(fn):
     return kept
 
 
-def check_nms_detect(phase: str, what: str, fn):
+def check_nms_detect(phase: str, what: str, fn, device: bool = False):
     """NMS on the inputs of one detect (``fn()``, both calls): the kernel's
     keep mask and slots bitwise its plain version's, each call's picks,
-    kernel time (CUDA events, through the wrapper) and bound."""
+    kernel time (CUDA events, through the wrapper) and bound; with
+    ``device``, each call's device time (torch.profiler, 10 launches),
+    returned by N."""
     plain = importlib.import_module(NMS_MODULE)
     from frcnn_tpu_torch.ops import nms_kernel as K
 
@@ -555,17 +648,27 @@ def check_nms_detect(phase: str, what: str, fn):
     if len(calls) != 2:
         raise AssertionError(f"{phase} {what}: {len(calls)} NMS calls in "
                              f"one detect, expected 2")
-    parts = []
+    parts, dev = [], {}
     for k, (boxes, valid, thr, m) in enumerate(calls):
         keep, _ = _nms_equal(K, plain, boxes, valid, thr, m,
                              f"{phase} {what} call {k + 1}")
         ms = time_ms(lambda: K.nms_keep_slots(boxes, valid, thr, m))
         picks, bms, by = _nms_stats(keep, boxes, valid, thr, m)
+        text = ""
+        if device:
+            got = kernel_device_ms(
+                lambda: K.nms_keep_slots(boxes, valid, thr, m),
+                ["nms_keep_kernel"])
+            dev[valid.shape[1]] = None if got is None else \
+                got["nms_keep_kernel"][0]
+            text = ", device " + ("not measured" if got is None else
+                                  f"{dev[valid.shape[1]]:.4f} ms")
         parts.append(f"call {k + 1} (N={valid.shape[1]}, thr {thr}, "
                      f"{int(valid.sum())} valid): {picks}; kernel "
-                     f"{ms:.4f} ms, bound {bms:.6f} ms ({by})")
+                     f"{ms:.4f} ms{text}, bound {bms:.6f} ms ({by})")
     log(phase, f"nms on a {what} detect's own inputs: keep masks and slots "
         f"bitwise equal; " + "; ".join(parts), t)
+    return dev
 
 
 def _roi_inputs(gen, shape, D, span: float, n_valid=None, dtype=None):
@@ -851,12 +954,34 @@ def phase_api(kernels, smi: str):
     if names != frcnn_tpu_torch.__all__:
         raise AssertionError(f"api: top-level names resolve to {names}")
     gen = torch.Generator().manual_seed(17)
-    boxes, _ = _nms_inputs(gen, API_N)
-    scores = torch.rand((B, API_N), generator=gen)
-    scores[:, 1::17] = scores[:, 0:-1:17][:, : scores[:, 1::17].shape[1]]
-    valid = torch.rand((B, API_N), generator=gen) > 0.1
-    classes = torch.randint(0, API_CLASSES, (B, API_N), generator=gen)
-    args = (boxes, scores.cuda(), classes.cuda(), valid.cuda())
+
+    def inputs(n: int):
+        boxes, _ = _nms_inputs(gen, n)
+        scores = torch.rand((B, n), generator=gen)
+        scores[:, 1::17] = scores[:, 0:-1:17][:, : scores[:, 1::17].shape[1]]
+        valid = torch.rand((B, n), generator=gen) > 0.1
+        classes = torch.randint(0, API_CLASSES, (B, n), generator=gen)
+        return boxes, scores.cuda(), classes.cuda(), valid.cuda()
+
+    def one_launch(what: str, fn, args):
+        """``fn(*args)``: one launch of row 1 and no other kernel, indices
+        and validity bitwise the same call's on CPU copies."""
+        _zero_launches()
+        idx, ok = fn(*args)
+        torch.cuda.synchronize()
+        launches = _launches()
+        if launches != {K.KERNEL.name: 1}:
+            raise AssertionError(f"api {what}: launches {launches}, "
+                                 f"expected one of {K.KERNEL.name}")
+        ref_idx, ref_ok = fn(*(a.cpu() for a in args))
+        if not (torch.equal(idx.cpu(), ref_idx)
+                and torch.equal(ok.cpu(), ref_ok)):
+            raise AssertionError(
+                f"api {what}: indices differ from the CPU copies' in "
+                f"{int((idx.cpu() != ref_idx).sum())} places")
+        return ok
+
+    args = inputs(API_N)
     calls = {
         "nms": lambda b, s, c, v: ops.nms(b, s, v, PROPOSAL_NMS_IOU,
                                           API_MAX_OUT),
@@ -869,25 +994,22 @@ def phase_api(kernels, smi: str):
     entry["launches_api"], entry["ms_api"] = {}, {}
     parts = []
     for name, fn in calls.items():
-        _zero_launches()
-        idx, ok = fn(*args)
-        torch.cuda.synchronize()
-        launches = _launches()
-        if launches != {K.KERNEL.name: 1}:
-            raise AssertionError(f"api {name}: launches {launches}, "
-                                 f"expected one of {K.KERNEL.name}")
-        ref_idx, ref_ok = fn(*(a.cpu() for a in args))
-        if not (torch.equal(idx.cpu(), ref_idx)
-                and torch.equal(ok.cpu(), ref_ok)):
-            raise AssertionError(
-                f"api {name}: indices differ from the CPU copies' in "
-                f"{int((idx.cpu() != ref_idx).sum())} places")
+        ok = one_launch(name, fn, args)
         ms = time_ms(lambda: fn(*args))
-        entry["launches_api"][name] = launches[K.KERNEL.name]
+        entry["launches_api"][name] = 1
         entry["ms_api"][name] = ms
         picks = ok.reshape(-1, API_MAX_OUT).sum(1)
         parts.append(f"{name}: 1 launch, picks per image "
                      f"{int(picks.min())}-{int(picks.max())}, {ms:.4f} ms")
+    # past 2048 boxes per image, where each block stages its share
+    for n in (2049, 6000):
+        big = inputs(n)
+        for name in ("nms", "per_class_nms"):
+            ok = one_launch(f"{name} N={n}", calls[name], big)
+            entry["launches_api"][f"{name}_N{n}"] = 1
+            picks = ok.reshape(-1, API_MAX_OUT).sum(1)
+            parts.append(f"{name} N={n}: 1 launch, picks per image "
+                         f"{int(picks.min())}-{int(picks.max())}")
     n = K.MAX_BOXES + 1
     big = (torch.zeros((1, n, 4), device="cuda"),
            torch.zeros((1, n), device="cuda"),
@@ -906,8 +1028,8 @@ def phase_api(kernels, smi: str):
     log("api", f"nine top-level names resolve; B={B} N={API_N} "
         f"{API_CLASSES} classes thr {PROPOSAL_NMS_IOU}/{CLASS_NMS_IOU} "
         f"max_out {API_MAX_OUT}, indices bitwise the CPU copies': "
-        + "; ".join(parts) + f"; N={n} raises ValueError, no launch; "
-        f"{smi}", t)
+        + "; ".join(parts) + f"; N={n} (past the kernel's limit) raises "
+        f"ValueError, no launch; {smi}", t)
 
 
 def phase_kernels():
@@ -1332,6 +1454,79 @@ def phase_detect(kernels):
                      lambda: Detector(cfg, pnet, cnet, device="cuda").detect(
                          (lum4, chroma), hw_dev))
     phase_profile(det, (lum4, chroma), hw_dev)
+    del det
+    detect_published(kernels, cfg, pnet, cnet, frames, true_hw,
+                     (lum4, chroma), hw_dev)
+
+
+# Faster R-CNN's published test setting: 6000 boxes into the proposal NMS
+# and 300 out (Ren et al., NeurIPS 2015; py-faster-rcnn's
+# TEST.RPN_PRE_NMS_TOP_N and TEST.RPN_POST_NMS_TOP_N)
+PUBLISHED = (6000, 300)
+
+
+def detect_published(kernels, cfg, pnet, cnet, frames, true_hw, planes,
+                     hw_dev):
+    """The vgg_small serving Detector at :data:`PUBLISHED`: float32
+    through the kernels against the plain versions (valid sets and classes
+    equal, matched by class and box within 1e-3); bf16 ms per detect, its
+    launches (2 of row 1 per detect) and device ms; row 1 bitwise on both
+    calls of a detect, with its device ms at N = 6000 and N = 300."""
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.ops import block0_kernel, nms_kernel, roi_pool_kernel
+
+    k, d = PUBLISHED
+    c6 = cfg.replace(shapes=dataclasses.replace(
+        cfg.shapes, max_proposals=k, max_detections=d))
+    what = f"{IMAGE_HW[0]}x{IMAGE_HW[1]} {k} -> {d} proposals"
+    t = time.perf_counter()
+    f32 = c6.replace(compute_dtype="float32")
+    ker = Detector(f32, pnet, cnet, device="cuda").detect(frames, true_hw)
+    ref = Detector(f32.replace(pallas_mode="off"), pnet, cnet,
+                   device="cuda").detect(frames, true_hw)
+    torch.cuda.synchronize()
+    _check_f32_detect("detect-6000", ker, ref, what, t, ordered=False)
+
+    t = time.perf_counter()
+    modules = {"nms_keep_mask": nms_kernel, "roi_pool": roi_pool_kernel,
+               "fused_block0": block0_kernel}
+    det = Detector(c6, pnet, cnet, device="cuda")
+    det.detect(planes, hw_dev)                  # warm-up
+    torch.cuda.synchronize()
+    for m in modules.values():
+        m.KERNEL.launches = 0
+    n_calls = 3
+    t_run = time.perf_counter()
+    for _ in range(n_calls):
+        out = det.detect(planes, hw_dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_run) / n_calls * 1e3
+    launches = {n: m.KERNEL.launches for n, m in modules.items()}
+    want = {n: (2 if n == "nms_keep_mask" else 1) * n_calls for n in modules}
+    if launches != want:
+        raise AssertionError(f"detect-6000: launches {launches} in "
+                             f"{n_calls} calls, expected {want}")
+    n_in = int(det.last_counts["proposals_in"].sum())
+    n_roi, n_det = int(out.proposals_valid.sum()), int(out.valid.sum())
+    if not (n_in > 0 and n_roi > 0 and n_det > 0) or not all(
+            torch.isfinite(x).all() for x in (out.boxes, out.confidence)):
+        raise AssertionError(f"detect-6000: proposals {n_in}, rois {n_roi}, "
+                             f"detections {n_det}, or non-finite outputs")
+    log("detect-6000", f"bf16 B={B} {what}: {wall:.2f} ms/batch from packed "
+        f"device planes; {n_in} proposals into NMS, {n_roi} rois pooled, "
+        f"{n_det} detections; launches {launches} over {n_calls} calls", t)
+    dev = profile_run("detect-6000", f"bf16 B={B} {what}",
+                      lambda: det.detect(planes, hw_dev), "batch")
+    del det
+    per_n = check_nms_detect(
+        "detect-6000", f"vgg_small bf16 {what}",
+        lambda: Detector(c6, pnet, cnet, device="cuda").detect(planes,
+                                                               hw_dev),
+        device=True)
+    kernels["nms_keep_mask"]["published"] = {
+        "proposals": k, "detections": d, "ms_per_detect": wall,
+        "device_ms_per_detect": dev, "launches_per_detect": 2,
+        "device_ms_by_n": per_n}
 
 
 # kernel -> (name fragment of its bf16 mode in a trace, launches per call)
@@ -1432,7 +1627,8 @@ PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
 def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
     """Device time of ``fn()`` by kernel group (torch.profiler), and the
     busy share of the device: that device time over the wall time of the
-    same calls run without the profiler."""
+    same calls run without the profiler. Returns the device ms per call
+    (None where the trace held no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1463,7 +1659,7 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
     busy = sum(groups.values())
     if busy == 0:
         log(phase, "torch.profiler recorded no device time: not measured", t)
-        return
+        return None
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"[{phase}] {g}: {us / 1e3:.3f} ms/{unit} "
               f"({100 * us / busy:.1f}% of device time)", flush=True)
@@ -1475,6 +1671,7 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
         f"share {100 * busy / wall_us:.1f}%), {prof_wall_us / 1e3:.3f} "
         f"ms/{unit} under it; {n_launch / n_calls:.0f} kernel launches per "
         f"{unit}", t)
+    return busy / 1e3
 
 
 def kernel_device_ms(fn, fragments, n_calls: int = 10):
@@ -2868,7 +3065,150 @@ def phase_data(kernels, fixed_ms_step: float, root: Path) -> Path:
         f"detections, classes equal, boxes and scores within 1e-3; "
         f"{sum(map(len, pk.values()))} proposals within 1e-3)", t)
     logging.getLogger("frcnn_tpu_torch.data").removeHandler(capture)
+    phase_data_jpeg(kernels, root)
     return manifest
+
+
+JPEG_DIR = ROOT / "frcnn_tpu_torch" / "tools" / "jpeg_fixtures"
+JPEG_FRAME = "frame_q90_420_500x375.jpg"
+JPEG_BATCH = 2       # images per vgg_large step from the fixtures
+JPEG_STEPS = 2
+
+
+def _jpeg_sources() -> dict:
+    """{fixture: the SHA-256 of PIL's RGB bytes, or "raises"}, from the
+    fixtures' SOURCES.md (written where PIL is installed)."""
+    out = {}
+    for ln in (JPEG_DIR / "SOURCES.md").read_text().splitlines():
+        m = re.match(r"^\| `([^`]+\.jpg)` \|.*\| `([0-9a-f]{64}|raises)` \|$",
+                     ln)
+        if m:
+            out[m.group(1)] = m.group(2)
+    return out
+
+
+def _voc_xml(stem: str, w: int, h: int, cls: str) -> str:
+    """A PASCAL VOC-style annotation, as ILSVRC DET writes them: one object
+    of ``cls`` over the middle half of the image."""
+    box = "".join(f"<{k}>{v}</{k}>" for k, v in (
+        ("xmin", w // 4), ("ymin", h // 4), ("xmax", 3 * w // 4),
+        ("ymax", 3 * h // 4)))
+    return (f"<annotation><filename>{stem}</filename><size><width>{w}"
+            f"</width><height>{h}</height></size><object><name>{cls}</name>"
+            f"<bndbox>{box}</bndbox></object></annotation>\n")
+
+
+def phase_data_jpeg(kernels, root: Path):
+    """JPEG on the card's machine, which has neither ``jpeglib.h`` nor
+    PIL: every fixture of ``tools/jpeg_fixtures`` through ``data/jpeg.py``,
+    its RGB bytes' SHA-256 against PIL's in SOURCES.md (the truncated one
+    refused); ms per frame beside the PNG reader's on the same pixels; then
+    ``import-imagenet`` over them as an ILSVRC DET tree with VOC XML
+    annotations, and vgg_large ``train --steps 2 --plot 0`` from it."""
+    import hashlib
+    import shutil
+
+    from frcnn_tpu_torch.config import imagenet_config
+    from frcnn_tpu_torch.data import codec
+
+    t = time.perf_counter()
+    sources = _jpeg_sources()
+    sizes, refused = {}, []
+    for name, want in sources.items():
+        path = str(JPEG_DIR / name)
+        if want == "raises":
+            try:
+                codec.read_rgb(path, use_native=False)
+            except ValueError as e:
+                refused.append(str(e))
+                continue
+            raise AssertionError(f"data jpeg: {name} decoded; PIL raises")
+        rgb = codec.read_rgb(path, use_native=False)
+        got = hashlib.sha256(rgb.tobytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"data jpeg: {name} decodes to SHA-256 "
+                                 f"{got}, PIL's decode to {want}")
+        sizes[name] = rgb.shape[:2]
+    if not sizes or not refused:
+        raise AssertionError(f"data jpeg: {len(sizes)} fixtures decoded, "
+                             f"{len(refused)} refused")
+    frame = str(JPEG_DIR / JPEG_FRAME)
+    png = str(root / "jpeg_frame.png")
+    codec.write_png(png, codec.read_rgb(frame, use_native=False))
+
+    def median_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    jpeg_ms = median_ms(lambda: codec.read_rgb(frame, use_native=False))
+    png_ms = median_ms(lambda: codec.read_rgb(png, use_native=False))
+    log("data", f"{len(sizes)} JPEG fixtures through data/jpeg.py, each "
+        f"one's RGB SHA-256 equal to PIL's decode (SOURCES.md); refused as "
+        f"the file's fault: {refused[0]!r}; {JPEG_FRAME}: {jpeg_ms:.1f} "
+        f"ms per frame, the same pixels as PNG {png_ms:.1f} ms (median of "
+        f"3, host)", t)
+
+    t = time.perf_counter()
+    base = root / "ilsvrc"
+    names = [n for n, hw in sizes.items() if min(hw) >= 30]
+    names.append(next(n for n, v in sources.items() if v == "raises"))
+    for split, files in (("train", names), ("val", names[:2])):
+        ann = base / "Annotations" / "DET" / split / "fixtures"
+        data = base / "Data" / "DET" / split / "fixtures"
+        ann.mkdir(parents=True)
+        data.mkdir(parents=True)
+        for i, name in enumerate(files):
+            stem = Path(name).stem
+            shutil.copy(JPEG_DIR / name, data / f"{stem}.JPEG")
+            h, w = sizes.get(name, (120, 160))   # the truncated file's crop
+            (ann / f"{stem}.xml").write_text(
+                _voc_xml(stem, w, h, f"n0000000{i % 3}"))
+    man = root / "ilsvrc.json"
+    wall_i, _, _ = _cli(["import-imagenet", "--base-dir", str(base),
+                         "--out", str(man)])
+    m = json.loads(man.read_text())
+    if (len(m["training_set"]), len(m["validation_set"])) != (len(names), 2):
+        raise AssertionError(f"data jpeg: import-imagenet listed "
+                             f"{len(m['training_set'])} training and "
+                             f"{len(m['validation_set'])} validation files")
+    cfg = imagenet_config(pallas_mode="on", compute_dtype="bfloat16",
+                          plot_interval=0, snapshot_interval=0)
+    cfg = cfg.replace(shapes=dataclasses.replace(
+        cfg.shapes, images_per_step=JPEG_BATCH))
+    (root / "ilsvrc_cfg.json").write_text(cfg.to_json())
+    capture = _LogCapture()
+    logging.getLogger("frcnn_tpu_torch.data").addHandler(capture)
+    try:
+        wall_t, _, launches = _cli([
+            "train", "--cfg", str(root / "ilsvrc_cfg.json"), "--train",
+            str(man), "--name", str(root / "jpeg"), "--steps",
+            str(JPEG_STEPS), "--plot", "0"])
+    finally:
+        logging.getLogger("frcnn_tpu_torch.data").removeHandler(capture)
+    recs = [json.loads(ln) for ln in
+            (root / "jpeg_metrics.jsonl").read_text().splitlines()]
+    want = {"roi_pool": JPEG_STEPS, "roi_pool_bwd": JPEG_STEPS,
+            "pool_bwd": 4 * JPEG_STEPS}
+    if len(recs) != JPEG_STEPS or any(
+            r["skipped"] or not np.isfinite(r["loss"]) for r in recs) or \
+            launches != want:
+        raise AssertionError(f"data jpeg train: metrics {recs}, launches "
+                             f"{launches} (expected {want})")
+    skipped = [x for x in capture.messages if "Invalid image" in x]
+    kernels["roi_pool"]["launches_data_jpeg"] = launches["roi_pool"]
+    log("data", f"import-imagenet over an ILSVRC DET tree of the fixtures "
+        f"({len(names)} training files, 2 validation, VOC XML; "
+        f"{wall_i:.2f} s), then vgg_large train --steps {JPEG_STEPS} "
+        f"--plot 0 from JPEG (imagenet config, bf16, kernels on, B="
+        f"{JPEG_BATCH}; decoder: {codec.decoder()}): losses "
+        f"{[round(r['loss'], 4) for r in recs]}, none skipped, launches "
+        f"{launches}; files skipped and logged: {len(skipped)}"
+        f"{f' ({skipped[0]!r})' if skipped else ''}; {wall_t:.2f} s wall",
+        t)
 
 
 # -- the CLI ------------------------------------------------------------------
@@ -3920,7 +4260,8 @@ def main() -> int:
                       "launches_data", "launches_train_large",
                       "device_ms_train_large", "launches_cli",
                       "launches_dryrun_real", "launches_bench",
-                      "launches_api", "ms_api"):
+                      "launches_api", "ms_api", "large_n", "published",
+                      "launches_data_jpeg"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

@@ -23,17 +23,30 @@
 // box by box pays a dependent shared-memory read per box and, per pick, an
 // IoU row and a block-wide barrier; and one block per image leaves 124 of
 // the 132 SMs idle at batch 8 while the IoU rows are bound by instruction
-// throughput on the other 8.
+// throughput on the other 8. At Faster R-CNN's published proposal NMS,
+// 6000 boxes into 300 picks, an image's inputs are 102 KB and its IoUs at
+// most 300 x 6000 = 1.8 x 10^6: still the pick chain, now over more
+// chunks, with each block's (d) pass over ~750 boxes per chunk.
 //
 // Design: blocked greedy NMS on 64-box bitsets, one thread-block cluster of
-// 8 blocks (8 SMs) per image. Every block stages the image's boxes (16 B)
-// and +1-pixel areas (4 B) and keeps a copy of the alive bitset (one bit
-// per box) in shared memory; block r owns the alive words w with
-// w % 8 == r. The greedy walk takes chunks of the next 64 alive boxes, so
-// a chunk never holds a box that an earlier chunk's picks suppressed, and
-// a chunk of fewer than 64 is the last. Each chunk after the first costs
-// one cluster barrier (the first runs while the blocks wait on each
-// other's staging, which only the first remote write needs):
+// 8 blocks (8 SMs) per image. Block r owns the alive words w with
+// w % 8 == r, and every block keeps a copy of the alive bitset (one bit
+// per box) in shared memory. Each block stages boxes (16 B) and +1-pixel
+// areas (4 B) in shared memory: the whole image where it has at most
+// kWholeMax boxes (within the 48 KB default), else only the boxes of its
+// own words, about N/8, which is all that pass (d) reads. Where that share
+// passes 48 KB the launcher opts in to the card's 227 KB once per device,
+// which bounds N at frcnn_nms_max_boxes() (87552 boxes). Passes (b) and R
+// read only the chunk's 64 members, which one warp copies into a small
+// buffer as it lists them: from the staged image, or from device memory
+// where the block holds only its share. The non-finite records span the
+// image in every block: staging reads every box for them and the alive
+// bits, and stores only what the block keeps. The greedy walk takes
+// chunks of the next 64 alive boxes, so a chunk never holds a box that an
+// earlier chunk's picks suppressed, and a chunk of fewer than 64 is the
+// last. Each chunk after the first costs one cluster barrier (the first
+// runs while the blocks wait on each other's staging, which only the first
+// remote write needs):
 //   (d)   every block clears each alive box of its own words after the
 //         last chunk that a pick of that chunk suppresses, in every block's
 //         copy (one distributed shared memory atomic per warp and block);
@@ -42,8 +55,9 @@
 //   cluster barrier: the alive bits are final up to the next chunk and
 //         the same in every block (a block that runs ahead clears only
 //         bits after that chunk's 64th box);
-//   chunk one warp lists the first 64 alive boxes (a scan of popcounts, a
-//         trip per nonzero word);
+//   chunk one warp lists the first 64 alive boxes (a scan of popcounts over
+//         32 words at a time, a trip per nonzero word) and copies their
+//         boxes and areas;
 //   (b)   every block computes the chunk's intra-chunk suppression columns
 //         (col[a] bit b set when member b < a suppresses member a), a warp
 //         per two columns, one ballot per 32 members;
@@ -56,7 +70,7 @@
 //         the keep bytes and the slots (rank = picks before the chunk +
 //         popcount below the member).
 // The serving path's N=512 takes 2-4 chunks, against a block barrier per
-// pick. A zero intersection over a nonzero, non-NaN union is decided
+// pick; the proposal NMS of 6000 boxes into 300 picks at least 5. A zero intersection over a nonzero, non-NaN union is decided
 // without the division (the same bit: +-0 <= thr), and most pairs of
 // boxes do not overlap, so a warp whose pairs all miss skips the IEEE
 // division's instruction sequence. The walk is instantiated twice:
@@ -78,6 +92,8 @@ namespace {
 constexpr int kChunk = 64;
 constexpr int kThreads = 512;
 constexpr int kCluster = 8;  // blocks per image, on 8 SMs
+constexpr int kWholeMax = 2048;  // boxes staged whole in every block
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || a > b) ? a : b;
@@ -133,26 +149,42 @@ __device__ __forceinline__ uint32_t from_pos(uint32_t x, int w, int pos) {
 
 // An image as every block of its cluster holds it in shared memory.
 struct Image {
-  const float4* box;      // [npad] (x0, y0, x1, y1)
-  const float* area;      // [npad] +1-pixel areas
+  const float4* box;      // the staged boxes (x0, y0, x1, y1): the whole
+  const float* area;      // image, or the block's share; +1-pixel areas
+  const float* gbox;      // the image's boxes in device memory [n, 4]
   uint32_t* alive;        // [n_words] one bit per box
   const int* bad;         // first [0..3] and last [4..7] non-finite box
   uint64_t* cols;         // [kChunk] col[a] bit b: member b suppresses a
   int* cidx;              // [kChunk] the chunk's members, sorted positions
+  float4* cbox;           // [kChunk] their boxes and areas
+  float* carea;
   int* chunk;             // [2] its size, and the position after it
   uint64_t* chunk_kept;   // its picks, bits over cidx
   int npad, n_words, max_out, rank;
+  bool whole;             // every block stages the whole image
   float thr;
   uint8_t* keep;          // this image's outputs (written by block 0)
   int32_t* slots;
 
-  // box i as a pick: its coordinates as the TPU kernel reads them, where
-  // one of the image's coordinates is not finite
+  // where box j of one of this block's words is staged
+  __device__ __forceinline__ int staged(int j) const {
+    return whole ? j : ((j >> 5) / kCluster) * 32 + (j & 31);
+  }
+
+  // box j from device memory, as staging read it
+  __device__ __forceinline__ float4 load(int j) const {
+    return make_float4(gbox[4 * j], gbox[4 * j + 1], gbox[4 * j + 2],
+                       gbox[4 * j + 3]);
+  }
+
+  // member a of the chunk as a pick: its coordinates as the TPU kernel
+  // reads them, where one of the image's coordinates is not finite
   template <bool kFinite>
-  __device__ __forceinline__ void pick(int i, float4& p, float& pa) const {
-    p = box[i];
-    pa = area[i];
+  __device__ __forceinline__ void pick(int a, float4& p, float& pa) const {
+    p = cbox[a];
+    pa = carea[a];
     if (!kFinite) {
+      const int i = cidx[a];
       float c[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -201,14 +233,14 @@ __device__ __forceinline__ void walk(const Image& im,
         const bool was = j >= pos && ((va[j >> 5] >> (j & 31)) & 1u);
         bool s = false;
         if (was) {
-          const float4 q = im.box[j];
-          const float qa = im.area[j];
+          const float4 q = im.box[im.staged(j)];
+          const float qa = im.area[im.staged(j)];
           uint64_t m = kept;
           for (int r = 0; r < sub; ++r) m &= m - 1;
           while (m != 0 && !s) {
             float4 p;
             float pa;
-            im.pick<kFinite>(im.cidx[__ffsll((long long)m) - 1], p, pa);
+            im.pick<kFinite>(__ffsll((long long)m) - 1, p, pa);
             for (int r = 0; r < tpb; ++r) m &= m - 1;
             s = suppresses<kFinite>(q, qa, p, pa, im.thr);
           }
@@ -226,36 +258,47 @@ __device__ __forceinline__ void walk(const Image& im,
 
     // the chunk: the first 64 alive boxes from pos on, the same in every
     // block (a block that runs ahead clears only bits after them); one
-    // warp, a trip per nonzero word, lane l taking bit l
+    // warp, 32 words at a time, a trip per nonzero word, lane l taking
+    // bit l; then each lane copies members l and l + 32
     if (warp == 0) {
-      const uint32_t x0 =
-          lane < im.n_words ? from_pos(va[lane], lane, pos) : 0u;
-      const uint32_t x1 = lane + 32 < im.n_words
-                              ? from_pos(va[lane + 32], lane + 32, pos)
-                              : 0u;
-      const int s0 = warp_scan(__popc(x0));
-      const int s1 =
-          warp_scan(__popc(x1)) + __shfl_sync(0xffffffffu, s0, 31);
-      const int size = min(__shfl_sync(0xffffffffu, s1, 31), kChunk);
-      const int e0 = s0 - __popc(x0), e1 = s1 - __popc(x1);
-      uint64_t nz = __ballot_sync(0xffffffffu, x0 != 0) |
-                    ((uint64_t)__ballot_sync(0xffffffffu, x1 != 0) << 32);
-      for (; nz != 0; nz &= nz - 1) {
-        const int w = __ffsll((long long)nz) - 1;
-        const uint32_t xa = __shfl_sync(0xffffffffu, x0, w & 31);
-        const uint32_t xb = __shfl_sync(0xffffffffu, x1, w & 31);
-        const int ea = __shfl_sync(0xffffffffu, e0, w & 31);
-        const int eb = __shfl_sync(0xffffffffu, e1, w & 31);
-        const uint32_t x = w < 32 ? xa : xb;
-        const int base = w < 32 ? ea : eb;
-        if (base >= kChunk) break;
-        const int r = base + __popc(x & ((1u << lane) - 1));
-        if (((x >> lane) & 1) && r < kChunk) {
-          im.cidx[r] = 32 * w + lane;
-          if (r == size - 1) im.chunk[1] = 32 * w + lane + 1;
+      int found = 0;  // alive boxes counted from pos on
+      for (int w0 = pos >> 5; w0 < im.n_words && found < kChunk; w0 += 32) {
+        const int w = w0 + lane;
+        const uint32_t x = w < im.n_words ? from_pos(va[w], w, pos) : 0u;
+        const int c = __popc(x);
+        const int incl = warp_scan(c);
+        const int e = found + incl - c;  // members before this word
+        for (uint32_t nz = __ballot_sync(0xffffffffu, x != 0 && e < kChunk);
+             nz != 0; nz &= nz - 1) {
+          const int l = __ffs(nz) - 1;
+          const uint32_t xl = __shfl_sync(0xffffffffu, x, l);
+          const int r = __shfl_sync(0xffffffffu, e, l) +
+                        __popc(xl & ((1u << lane) - 1));
+          if (((xl >> lane) & 1) && r < kChunk)
+            im.cidx[r] = 32 * (w0 + l) + lane;
         }
+        found += __shfl_sync(0xffffffffu, incl, 31);
       }
-      if (lane == 0) im.chunk[0] = size;
+      const int size = min(found, kChunk);
+      __syncwarp();
+      // both loads in flight before either store
+      const bool h0 = lane < size, h1 = lane + 32 < size;
+      const int j0 = h0 ? im.cidx[lane] : 0, j1 = h1 ? im.cidx[lane + 32] : 0;
+      float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0;
+      if (h0) q0 = im.whole ? im.box[j0] : im.load(j0);
+      if (h1) q1 = im.whole ? im.box[j1] : im.load(j1);
+      if (h0) {
+        im.cbox[lane] = q0;
+        im.carea[lane] = im.whole ? im.area[j0] : area_plus_one(q0);
+      }
+      if (h1) {
+        im.cbox[lane + 32] = q1;
+        im.carea[lane + 32] = im.whole ? im.area[j1] : area_plus_one(q1);
+      }
+      if (lane == 0) {
+        im.chunk[0] = size;
+        if (size > 0) im.chunk[1] = im.cidx[size - 1] + 1;
+      }
     }
     __syncthreads();
     const int size = im.chunk[0];
@@ -267,13 +310,13 @@ __device__ __forceinline__ void walk(const Image& im,
     {
       float4 p0, p1;
       float pa0, pa1;
-      if (lane < size) im.pick<kFinite>(im.cidx[lane], p0, pa0);
-      if (lane + 32 < size) im.pick<kFinite>(im.cidx[lane + 32], p1, pa1);
+      if (lane < size) im.pick<kFinite>(lane, p0, pa0);
+      if (lane + 32 < size) im.pick<kFinite>(lane + 32, p1, pa1);
       for (int a = warp; a < size; a += 2 * kWarps) {
         const int a2 = a + kWarps;
-        const int j = im.cidx[a], j2 = im.cidx[a2 < size ? a2 : a];
-        const float4 q = im.box[j], q2 = im.box[j2];
-        const float qa = im.area[j], qa2 = im.area[j2];
+        const int b2 = a2 < size ? a2 : a;
+        const float4 q = im.cbox[a], q2 = im.cbox[b2];
+        const float qa = im.carea[a], qa2 = im.carea[b2];
         const bool s0 =
             lane < a && suppresses<kFinite>(q, qa, p0, pa0, im.thr);
         const bool s1 =
@@ -348,8 +391,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     nms_keep_kernel(const float* __restrict__ boxes,
                     const uint8_t* __restrict__ valid,
                     uint8_t* __restrict__ keep, int32_t* __restrict__ slots,
-                    int n, float thr, int max_out) {
+                    int n, int staged, float thr, int max_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float4 cbox[kChunk];
+  __shared__ float carea[kChunk];
   __shared__ uint64_t cols[kChunk];
   __shared__ int cidx[kChunk];
   __shared__ int chunk[2];
@@ -358,9 +403,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   const int rank = (int)cluster.block_rank();
   const int npad = (n + 31) / 32 * 32;
   const int n_words = npad / 32;
+  const bool whole = staged >= npad;
   float4* sbox = reinterpret_cast<float4*>(smem);
-  float* sarea = reinterpret_cast<float*>(sbox + npad);
-  uint32_t* alive = reinterpret_cast<uint32_t*>(sarea + npad);
+  float* sarea = reinterpret_cast<float*>(sbox + staged);
+  uint32_t* alive = reinterpret_cast<uint32_t*>(sarea + staged);
   int* bad = reinterpret_cast<int*>(alive + n_words);
 
   const int b = blockIdx.x / kCluster;
@@ -370,7 +416,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   uint8_t* bk = keep + (size_t)b * n;
   int32_t* bs = slots + (size_t)b * max_out;
 
-  // every block of the cluster stages the whole image
+  // every block reads the whole image (the non-finite records and the
+  // alive bits) and stores the boxes it keeps: all of them, or its share
   if (threadIdx.x < 8) bad[threadIdx.x] = threadIdx.x < 4 ? n : -1;
   __syncthreads();
   // a warp's 32 boxes are all below npad or all above (npad % 32 == 0)
@@ -386,9 +433,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           atomicMax(bad + 4 + k, j);
         }
       }
-      const float4 q = make_float4(c[0], c[1], c[2], c[3]);
-      sbox[j] = q;
-      sarea[j] = area_plus_one(q);
+      if (whole || (j >> 5) % kCluster == rank) {
+        const float4 q = make_float4(c[0], c[1], c[2], c[3]);
+        const int s = whole ? j : ((j >> 5) / kCluster) * 32 + (j & 31);
+        sbox[s] = q;
+        sarea[s] = area_plus_one(q);
+      }
       v = bv[j] != 0;
       if (rank == 0) bk[j] = 0;
     }
@@ -402,8 +452,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   // before the first remote write, so the first chunk runs meanwhile
   asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
 
-  const Image im{sbox, sarea, alive, bad, cols, cidx, chunk, &chunk_kept,
-                 npad, n_words, max_out, rank, thr, bk, bs};
+  const Image im{sbox,  sarea,       bx,   alive,   bad,     cols,
+                 cidx,  cbox,        carea, chunk,  &chunk_kept,
+                 npad,  n_words,     max_out, rank, whole,   thr,
+                 bk,    bs};
   const bool finite = bad[0] > bad[4] && bad[1] > bad[5] &&
                       bad[2] > bad[6] && bad[3] > bad[7];
   if (finite)
@@ -412,19 +464,70 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     walk<false>(im, cluster);
 }
 
+// boxes staged per block, and the dynamic shared memory that takes
+void staging(int n, int* staged, size_t* smem) {
+  const int npad = (n + 31) / 32 * 32;
+  const int n_words = npad / 32;
+  *staged = npad <= kWholeMax ? npad
+                             : (n_words + kCluster - 1) / kCluster * 32;
+  *smem = (size_t)*staged * (sizeof(float4) + sizeof(float)) +
+          (size_t)n_words * sizeof(uint32_t) + 8 * sizeof(int);
+}
+
+// the dynamic shared memory a block may take on the current device (after
+// the one opt-in per device), or 0 on an error
+size_t dynamic_limit() {
+  static size_t limit[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  if (limit[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess ||
+        cudaFuncGetAttributes(&fa, nms_keep_kernel) != cudaSuccess)
+      return 0;
+    const int dyn = optin - (int)fa.sharedSizeBytes;
+    if (cudaFuncSetAttribute(nms_keep_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dyn) != cudaSuccess)
+      return 0;
+    limit[dev] = (size_t)dyn;
+  }
+  return limit[dev];
+}
+
 }  // namespace
+
+// The largest N a launch takes on the current device (0 on an error).
+extern "C" int frcnn_nms_max_boxes() {
+  const size_t limit = dynamic_limit();
+  int n = 0;
+  for (int step = 1 << 20; step >= 32; step >>= 1) {
+    int staged;
+    size_t smem;
+    staging(n + step, &staged, &smem);
+    if (smem <= limit) n += step;
+  }
+  return n;
+}
 
 extern "C" int frcnn_nms_keep(const void* boxes, const void* valid, void* keep,
                               void* slots, int batch, int n,
                               float iou_threshold, int max_out, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  const int npad = (n + 31) / 32 * 32;
-  const size_t smem = (size_t)npad * (sizeof(float4) + sizeof(float)) +
-                      (size_t)npad / 32 * sizeof(uint32_t) + 8 * sizeof(int);
+  int staged;
+  size_t smem;
+  staging(n, &staged, &smem);
+  if (smem > 48 * 1024) {
+    const size_t limit = dynamic_limit();
+    if (limit == 0) return (int)cudaGetLastError();
+    if (smem > limit) return (int)cudaErrorInvalidValue;
+  }
   nms_keep_kernel<<<batch * kCluster, kThreads, smem,
                     (cudaStream_t)stream>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), static_cast<int32_t*>(slots), n,
+      static_cast<uint8_t*>(keep), static_cast<int32_t*>(slots), n, staged,
       iou_threshold, max_out);
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,14 @@
   host library builds (``data/native.py``, libjpeg/libpng), it decodes
   PNG and JPEG: the library's pipeline at scale 1 (its resampling taps are
   then exactly 1 and 0) into a canvas of the image's own size, from which
-  ``rint(canvas * 255)`` is the decoded byte. Otherwise PNG goes through
-  the numpy/zlib reader here (bit depths 1-16, not interlaced, color
-  types 0/2/3/4/6, the five filter types), and JPEG raises, quoting why
-  the library did not build. PNG is lossless, so both decoders give the
-  same bytes; alpha is dropped and gray is repeated, as PIL's
-  ``convert("RGB")`` does.
+  ``rint(canvas * 255)`` is the decoded byte. Otherwise, or with
+  ``use_native=False``, PNG goes through the numpy/zlib reader here (bit
+  depths 1-16, not interlaced, color types 0/2/3/4/6, the five filter
+  types) and JPEG through ``data/jpeg.py`` (baseline, extended and
+  progressive Huffman, bitwise PIL's decode). Alpha is dropped and gray is
+  repeated, as PIL's ``convert("RGB")`` does.
 * :func:`write_png` writes uint8 RGB with zlib and filter 0.
+* :func:`jpeg_roundtrip` is a JPEG save and open in memory, as PIL's.
 """
 
 from __future__ import annotations
@@ -23,7 +24,20 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from frcnn_tpu_torch.data import native
+from frcnn_tpu_torch.data import jpeg, native
+from frcnn_tpu_torch.data.jpeg import (
+    _CONST_BITS,
+    _F0541,
+    _F0765,
+    _F1847,
+    _PASS1_BITS,
+    _descale,
+    _fancy_upsample,
+    _fix,
+    _idct_pass,
+    _odd_rotation,
+    _ycc_to_rgb,
+)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # JPEG start-of-frame markers: C0-CF except DHT (C4), JPG (C8), DAC (CC)
@@ -78,15 +92,16 @@ def decoder() -> str:
     """The decoder :func:`read_rgb` uses by default."""
     if native.available():
         return "native (libjpeg/libpng, csrc/host_pipeline.cpp)"
-    return "numpy/zlib PNG reader (no JPEG)"
+    return "numpy/zlib PNG reader and numpy JPEG decoder (data/jpeg.py)"
 
 
 def read_rgb(path: str, use_native: Optional[bool] = None) -> np.ndarray:
     """Decode ``path`` to uint8 RGB [h, w, 3]. ``use_native`` (default:
-    where the library is available) picks the native decoder; False
-    forces the numpy PNG reader. Raises ``ValueError`` for a file that
-    does not decode (a JPEG stream whose header holds no frame size
-    included), and ``RuntimeError`` for a JPEG without the library."""
+    where the library is available) picks the native decoder; False, or a
+    library that is not available, gives the numpy PNG reader and the
+    numpy JPEG decoder. Raises ``ValueError`` for a file that does not
+    decode: corrupt or truncated, or a JPEG of a kind ``data/jpeg.py``
+    refuses (arithmetic, lossless, hierarchical, 12-bit)."""
     if use_native is None:
         use_native = native.available()
     if use_native:
@@ -96,10 +111,7 @@ def read_rgb(path: str, use_native: Optional[bool] = None) -> np.ndarray:
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
     if data[:2] == b"\xff\xd8":
-        image_size(path)        # a corrupt header is the file's fault
-        raise RuntimeError(
-            f"{path}: JPEG needs the native host library, which is not "
-            f"available: {native.build_error()}")
+        return jpeg.decode(data)
     raise ValueError(f"{path}: neither PNG nor JPEG")
 
 
@@ -257,29 +269,6 @@ _CHROMA_Q = np.array([
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
 ], np.int64).reshape(8, 8)
-# libjpeg's integer DCTs (jfdctint.c, jidctint.c): 13 fraction bits in the
-# constants, 2 more bits kept between the passes
-_CONST_BITS, _PASS1_BITS = 13, 2
-_F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
-_F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
-_F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
-
-
-def _descale(x, n: int):
-    """libjpeg's DESCALE: x / 2^n rounded half up (an arithmetic shift)."""
-    return (x + (1 << (n - 1))) >> n
-
-
-def _odd_rotation(t4, t5, t6, t7):
-    """The shared odd part of the integer DCTs: (t4', t5', t6', t7')."""
-    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
-    z5 = (z3 + z4) * _F1175
-    z1, z2 = -z1 * _F0899, -z2 * _F2562
-    z3, z4 = -z3 * _F1961 + z5, -z4 * _F0390 + z5
-    return (t4 * _F0298 + z1 + z3, t5 * _F2053 + z2 + z4,
-            t6 * _F3072 + z2 + z3, t7 * _F1501 + z1 + z4)
-
-
 def _fdct_pass(d, axis: int, last: bool):
     """One pass of ``jpeg_fdct_islow`` along ``axis`` (length 8)."""
     g = [np.take(d, i, axis=axis) for i in range(8)]
@@ -295,25 +284,6 @@ def _fdct_pass(d, axis: int, last: bool):
            z1 - t12 * _F1847, o4]
     return np.stack([v if i in (0, 4) else _descale(v, n)
                      for i, v in enumerate(out)], axis=axis)
-
-
-def _idct_pass(d, axis: int, last: bool):
-    """One pass of ``jpeg_idct_islow`` along ``axis`` (length 8)."""
-    g = [np.take(d, i, axis=axis) for i in range(8)]
-    z1 = (g[2] + g[6]) * _F0541
-    tmp2, tmp3 = z1 - g[6] * _F1847, z1 + g[2] * _F0765
-    tmp0, tmp1 = (g[0] + g[4]) << _CONST_BITS, (g[0] - g[4]) << _CONST_BITS
-    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    o0, o1, o2, o3 = _odd_rotation(g[7], g[5], g[3], g[1])
-    n = _CONST_BITS + _PASS1_BITS + 3 if last else _CONST_BITS - _PASS1_BITS
-    out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1,
-           t11 - o2, t10 - o3]
-    return np.stack([_descale(v, n) for v in out], axis=axis)
-
-
-def _fix(x: float) -> int:
-    """libjpeg's FIX(x) at 16 fraction bits."""
-    return int(x * 65536 + 0.5)
 
 
 def quant_table(base: np.ndarray, quality: int) -> np.ndarray:
@@ -336,16 +306,6 @@ def _rgb_to_ycc(p: np.ndarray):
     return y, cb, cr
 
 
-def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """libjpeg's fixed-point YCbCr -> RGB (``jdcolor.c``), clipped."""
-    half = 1 << 15
-    cb, cr = cb - 128, cr - 128
-    r = y + ((_fix(1.402) * cr + half) >> 16)
-    g = y + ((-_fix(0.34414) * cb + half - _fix(0.71414) * cr) >> 16)
-    b = y + ((_fix(1.772) * cb + half) >> 16)
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
-
-
 def _dct_roundtrip(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
     """Each 8x8 block of the int64 plane (sides multiples of 8) as libjpeg
     codes and decodes it: level shift, the integer forward DCT (rows, then
@@ -359,22 +319,6 @@ def _dct_roundtrip(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
     qc = np.where(coef < 0, -((d // 2 - coef) // d), (coef + d // 2) // d)
     rec = _idct_pass(_idct_pass(qc * q, -2, False), -1, True)
     return np.clip(rec + 128, 0, 255).transpose(0, 2, 1, 3).reshape(h, w)
-
-
-def _fancy_upsample(c: np.ndarray) -> np.ndarray:
-    """libjpeg's h2v2 "fancy" upsampling (``jdsample.c``): each output
-    pixel 9/16, 3/16, 3/16, 1/16 of its four nearest samples, edge samples
-    repeated, with the library's biases (8 and 7)."""
-    up = np.concatenate([c[:1], c[:-1]], 0)
-    down = np.concatenate([c[1:], c[-1:]], 0)
-    out = np.empty((2 * c.shape[0], 2 * c.shape[1]), np.int64)
-    for v, near in ((0, up), (1, down)):
-        s = 3 * c + near                          # the column sums
-        left = np.concatenate([s[:, :1], s[:, :-1]], 1)
-        right = np.concatenate([s[:, 1:], s[:, -1:]], 1)
-        out[v::2, 0::2] = (3 * s + left + 8) >> 4
-        out[v::2, 1::2] = (3 * s + right + 7) >> 4
-    return out
 
 
 def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:

@@ -73,13 +73,14 @@ def find_target_size(orig_w: int, orig_h: int, target_smaller_side: int,
 
 
 def load_image(path: str, color_space: str = "rgb",
-               base_path: str = "") -> np.ndarray:
+               base_path: str = "",
+               use_native: Optional[bool] = None) -> np.ndarray:
     """Decode to float32 RGB [0,1] then convert color space
     (``load_image``, ``utilities.lua:205-218``). Raises on corrupt files —
-    callers catch and skip."""
+    callers catch and skip. ``use_native`` as :func:`codec.read_rgb`'s."""
     if base_path and not path.startswith("/"):
         path = os.path.join(base_path, path)
-    arr = codec.read_rgb(path).astype(np.float32) / 255.0
+    arr = codec.read_rgb(path, use_native).astype(np.float32) / 255.0
     return convert_color(arr, color_space)
 
 

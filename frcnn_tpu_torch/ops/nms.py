@@ -21,9 +21,10 @@ two agree bit for bit, and the same compaction of the keep mask.
 The public entries :func:`nms`, :func:`per_class_nms` and
 :func:`nms_indices_sorted` take the JAX package's arguments, unbatched or
 with a leading batch axis. They run the plain keep mask on CPU tensors and
-the CUDA kernel on CUDA tensors (``nms_kernel.nms_keep_slots``, which
-raises past ``nms_kernel.MAX_BOXES`` boxes). :func:`plain_nms` is the
-batched plain path on any device, for the detector's reference path.
+the CUDA kernel on CUDA tensors (``nms_kernel.nms_keep_slots``: up to
+``nms_kernel.MAX_BOXES``, 87552 boxes per image, and ``ValueError`` past
+that). :func:`plain_nms` is the batched plain path on any device, for the
+detector's reference path.
 """
 
 from __future__ import annotations
@@ -61,31 +62,37 @@ def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
 
     boxes_sorted: [B, N, 4] float32; valid_sorted: [B, N] bool.
     Returns the keep mask [B, N] bool over the sorted order.
+
+    As the Pallas kernel walks: each trip picks every image's first alive
+    box and suppresses with one IoU row against it, so memory is O(B * N)
+    for any N; trips stop once no image has an alive box.
     """
     x0, y0, x1, y1 = boxes_sorted.float().unbind(-1)
     p0, q0, p1, q1 = (picked_coords(c) for c in (x0, y0, x1, y1))
     area = (x1 - x0 + 1.0) * (y1 - y0 + 1.0)
-    parea = (p1 - p0 + 1.0) * (q1 - q0 + 1.0)
-    # iou[b, i, j]: box j against a kept box i, in the kernel's order
-    iw = torch.clamp(
-        torch.minimum(x1[:, None, :], p1[:, :, None])
-        - torch.maximum(x0[:, None, :], p0[:, :, None]) + 1.0, min=0.0)
-    ih = torch.clamp(
-        torch.minimum(y1[:, None, :], q1[:, :, None])
-        - torch.maximum(y0[:, None, :], q0[:, :, None]) + 1.0, min=0.0)
-    inter = iw * ih
-    iou = inter / (area[:, None, :] + parea[:, :, None] - inter)
-    survives = iou <= iou_threshold
-
     alive = valid_sorted.clone()
     keep = torch.zeros_like(alive)
     count = torch.zeros(alive.shape[0], dtype=torch.int32,
                         device=alive.device)
-    for i in range(alive.shape[1]):
-        pick = alive[:, i]
-        keep[:, i] = pick
+    rows = torch.arange(alive.shape[0], device=alive.device)
+    for trip in range(min(alive.shape[1], max_out)):
+        if trip % 16 == 0 and not bool(alive.any()):
+            break
+        pick = alive.any(dim=1)
+        i = alive.to(torch.uint8).argmax(dim=1)      # the first alive box
+        keep[rows, i] |= pick
+        alive[rows, i] = False
         count = count + pick.to(torch.int32)
-        alive = alive & (survives[:, i, :] | ~pick[:, None])
+        px0, py0, px1, py1 = (c[rows, i][:, None] for c in (p0, q0, p1, q1))
+        parea = (px1 - px0 + 1.0) * (py1 - py0 + 1.0)
+        # the pick's row, the later box first, in the kernel's order
+        iw = torch.clamp(torch.minimum(x1, px1) - torch.maximum(x0, px0)
+                         + 1.0, min=0.0)
+        ih = torch.clamp(torch.minimum(y1, py1) - torch.maximum(y0, py0)
+                         + 1.0, min=0.0)
+        inter = iw * ih
+        survives = inter / (area + parea - inter) <= iou_threshold
+        alive = alive & (survives | ~pick[:, None])
         alive = alive & (count < max_out)[:, None]
     return keep
 

@@ -5,8 +5,9 @@ the kernel, as the JAX wrapper keeps it in XLA; the kernel computes the
 keep mask over the sorted order and, in the same launch, the compaction
 to ``[B, max_out]`` slots that the JAX wrapper runs in XLA after it. On a
 CPU tensor the wrapper runs the plain version
-(``ops/nms.py::nms_keep_slots``); on a CUDA tensor it launches the kernel
-or raises.
+(``ops/nms.py::nms_keep_slots``) for any N; on a CUDA tensor it launches
+the kernel for up to :data:`MAX_BOXES` boxes per image and raises
+``ValueError`` past that, before any launch.
 """
 
 from __future__ import annotations
@@ -17,9 +18,28 @@ import torch
 
 from frcnn_tpu_torch.ops.nms import nms_keep_slots as plain_keep_slots
 from frcnn_tpu_torch.ops.nms import sorted_nms
-from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, ptr
+from frcnn_tpu_torch.ops.cuda_lib import CudaKernel, check_cuda, library, ptr
 
-MAX_BOXES = 2048  # shared memory: 20 bytes per box, under the 48 KB default
+# The kernel's limit on the H100 (``frcnn_nms_max_boxes`` in nms.cu gives it
+# on the current device): up to 2048 boxes every block of the cluster
+# stages the whole image; past that each of the 8 blocks stages the boxes
+# of its own alive words (20 bytes per box) beside the whole alive bitset
+# (one bit per box), in the 227 KB of shared memory a block may opt in to
+# (232448 bytes, less the kernel's 2064 bytes of static arrays).
+SMEM_OPTIN = 232448
+STATIC_SMEM = 2064
+
+
+def staged_smem(n: int) -> int:
+    """The kernel's dynamic shared memory per block for ``n`` boxes
+    (``staging`` in nms.cu)."""
+    words = (n + 31) // 32
+    staged = 32 * words if words <= 64 else 32 * (-(-words // 8))
+    return staged * 20 + words * 4 + 32
+
+
+MAX_BOXES = max(n for n in range(32, 1 << 17, 32)
+                if staged_smem(n) <= SMEM_OPTIN - STATIC_SMEM)
 
 KERNEL = CudaKernel(
     name="nms_keep_mask",
@@ -46,7 +66,8 @@ def nms_keep_slots(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     check_cuda("boxes_sorted", boxes_sorted, torch.float32, (B, N, 4))
     check_cuda("valid_sorted", valid_sorted, torch.bool, (B, N))
     if N > MAX_BOXES:
-        raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes, got {N}")
+        raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes per "
+                         f"image, got {N}")
     if max_out < 1:
         raise ValueError(f"nms kernel needs max_out >= 1, got {max_out}")
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes_sorted.device)
@@ -57,6 +78,14 @@ def nms_keep_slots(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                       ptr(keep), ptr(slots), B, N, float(iou_threshold),
                       int(max_out))
     return keep, slots
+
+
+def max_boxes() -> int:
+    """The largest N the kernel takes on the current CUDA device, as the
+    built library computes it (builds the kernels)."""
+    fn = library().frcnn_nms_max_boxes
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def nms_keep_mask(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,

@@ -281,7 +281,8 @@ def test_png_filter_types_match_pil(tmp_path, ft):
 
 def test_read_rgb_faults(tmp_path):
     """Corrupt files raise ValueError; a JPEG without the native library
-    raises RuntimeError quoting why the library is missing."""
+    decodes through ``data/jpeg.py``, bitwise PIL's, and a truncated one
+    raises ValueError."""
     p = tmp_path / "x.png"
     Image.fromarray(_picture()).save(p)
     data = p.read_bytes()
@@ -289,20 +290,25 @@ def test_read_rgb_faults(tmp_path):
     (tmp_path / "crc.png").write_bytes(data[:40] + bytes([data[40] ^ 1])
                                        + data[41:])
     (tmp_path / "junk.png").write_bytes(b"\x89PNGx")
-    for name in ("trunc.png", "crc.png", "junk.png"):
+    Image.fromarray(_picture()).save(tmp_path / "x.jpg")
+    jpg = (tmp_path / "x.jpg").read_bytes()
+    (tmp_path / "trunc.jpg").write_bytes(jpg[:len(jpg) // 2])
+    for name in ("trunc.png", "crc.png", "junk.png", "trunc.jpg"):
         with pytest.raises(ValueError):
             codec.read_rgb(str(tmp_path / name), use_native=False)
-    Image.fromarray(_picture()).save(tmp_path / "x.jpg")
-    with pytest.raises(RuntimeError, match="JPEG needs the native"):
-        codec.read_rgb(str(tmp_path / "x.jpg"), use_native=False)
+    with Image.open(tmp_path / "x.jpg") as ref:
+        np.testing.assert_array_equal(
+            codec.read_rgb(str(tmp_path / "x.jpg"), use_native=False),
+            np.asarray(ref.convert("RGB")))
 
 
 def test_failed_build_is_reported(tmp_path, monkeypatch):
     """A library that does not build: ``available()`` is False and
     ``build_error()`` keeps the compiler's error; the codec falls to the
-    numpy PNG reader, a JPEG raises quoting that error, the batch iterator
-    takes the Python path and raises on a JPEG (not skipped as a corrupt
-    file), and the native calls raise."""
+    numpy PNG reader and JPEG decoder (a JPEG decodes as PIL decodes it),
+    the batch iterator takes the Python path and gives the same batch from
+    a JPEG as from a PNG of PIL's decode of it, and the native calls
+    raise."""
     bad = tmp_path / "host_pipeline.cpp"
     bad.write_text("#include <no_such_header_jpeglib.h>\n")
     monkeypatch.setattr(native, "_SRC", str(bad))
@@ -314,8 +320,9 @@ def test_failed_build_is_reported(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "build") == ["lock"]
     assert codec.decoder().startswith("numpy")
     Image.fromarray(_picture()).save(tmp_path / "x.jpg")
-    with pytest.raises(RuntimeError, match="no_such_header_jpeglib"):
-        codec.read_rgb(str(tmp_path / "x.jpg"))
+    with Image.open(tmp_path / "x.jpg") as ref:
+        np.testing.assert_array_equal(codec.read_rgb(str(tmp_path / "x.jpg")),
+                                      np.asarray(ref.convert("RGB")))
     Image.fromarray(_picture()).save(tmp_path / "x.png")
     with Image.open(tmp_path / "x.png") as ref:
         np.testing.assert_array_equal(codec.read_rgb(str(tmp_path / "x.png")),
@@ -323,14 +330,25 @@ def test_failed_build_is_reported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="not available"):
         native.load_process(str(tmp_path / "x.png"), (37, 53), 37, 53)
     cfg = Config.from_json(tiny_config().replace(
-        examples_base_path=str(tmp_path)).to_json())
+        examples_base_path=str(tmp_path),
+        augmentation=AugmentationConfig()).to_json())
     Image.fromarray(_picture(160, 200)).save(tmp_path / "big.jpg")
-    manifest = {"ground_truth": {}, "training_set": ["big.jpg"],
-                "validation_set": []}
-    it = BatchIterator(cfg, manifest, use_native=True)
-    assert not it.use_native
-    with pytest.raises(RuntimeError, match="JPEG needs the native"):
-        it.next_training_batch()
+    with Image.open(tmp_path / "big.jpg") as im:
+        im.convert("RGB").save(tmp_path / "big.png")
+    batches = []
+    for name in ("big.jpg", "big.png"):
+        roi = {"rect": [10.0, 20.0, 90.0, 120.0], "class_name": "a",
+               "class_index": 0}
+        manifest = {"ground_truth": {name: {"image_file_name": name,
+                                            "rois": [roi]}},
+                    "training_set": [name], "validation_set": []}
+        it = BatchIterator(cfg, manifest, seed=0, use_native=True)
+        assert not it.use_native
+        batches.append(it.next_training_batch())
+    a, b = batches
+    assert bool(a.gt_mask.any())
+    for f in ("image", "true_hw", "gt_boxes", "gt_mask", "gt_classes"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_native_resample_and_pack():
