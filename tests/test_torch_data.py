@@ -48,13 +48,13 @@ from frcnn_tpu_torch.utils.metrics import profiler_trace
 from tests.test_dual_bucket import dual_cfg, make_mixed_dataset
 from tests.test_e2e_synthetic import make_dataset
 from tests.test_importers import CSV, XML
+from tests.ref_native import need_native as _need_native
+from tests.ref_native import reference_native  # noqa: F401 (fixture)
 from tests.test_t7 import _reference_traindata
 from tests.tiny import tiny_config
 
-
-def _need_native():
-    if not native.available():
-        pytest.skip(f"native host library not built: {native.build_error()}")
+# Every test loads the JAX package's native library from the port's build.
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 @pytest.fixture(scope="module")
@@ -557,12 +557,16 @@ def test_shards_match_jax(dataset):
     jc = tiny_config().replace(examples_base_path=str(dataset))
     cfg = Config.from_json(jc.to_json())
     m = str(dataset / "manifest.json")
+    use = native.available()
     for k in range(2):
-        j = JBatchIterator(jc, m, seed=1, shard_index=k, num_shards=2)
-        t = BatchIterator(cfg, m, seed=1, shard_index=k, num_shards=2)
+        j = JBatchIterator(jc, m, seed=1, shard_index=k, num_shards=2,
+                           use_native=use)
+        t = BatchIterator(cfg, m, seed=1, shard_index=k, num_shards=2,
+                          use_native=use)
+        assert j.use_native == t.use_native == use
         assert t.training.items == j.training.items
         _assert_same_batch(j.next_training_batch(), t.next_training_batch(),
-                           t.use_native)
+                           use)
 
 
 # -- prefetching and training from files ---------------------------------------
