@@ -36,9 +36,10 @@ Phases, each printing one flushed line with its seconds:
            unbatched ``nms`` of one image, each one launch of the NMS
            kernel and no other kernel, indices and validity bitwise those
            of the same call on CPU copies (the plain keep mask); times per
-           call; ``nms`` and ``per_class_nms`` at N = 2049 and N = 6000, each
-           one launch, bitwise the CPU copies'; N past the kernel's limit
-           raises ValueError naming it, with no launch
+           call; ``nms`` and ``per_class_nms`` at N = 2049, N = 6000 and
+           N = MAX_BOXES + 1 (past the staged limit), each one launch,
+           bitwise the CPU copies'; N past the kernel's limit
+           (``MAX_DIRECT``) raises ValueError naming it, with no launch
   kernels-int8  the int8 modes of the two block0 kernels against their
            plain versions at the int8 path's shapes, float32 and bf16
            planes with a random pad ring: block0's int8 output, the 2-conv
@@ -166,6 +167,24 @@ Phases, each printing one flushed line with its seconds:
            step with and without remat (torch.cuda.max_memory_allocated)
   train-large-profile  device time of a vgg_large bf16 step by kernel
            group and the busy share
+  shapes   every shape the Pallas kernels of rows 1, 2, 3, 4 and 6 take
+           beyond the published configurations, each against its plain
+           version with its launches, CUDA-event ms, plain ms and bound:
+           the ROI pool forward and backward at 9x9, 14x14 and 3x16 bins
+           (C=384) and at C=12 and 20 (float32 and bf16), the backward
+           also on a 4 x 32768 map and on 188- and 400-row maps (tie
+           masks of 2 and 3 words); block0 at F = 8, 24, 96 and 128 (both
+           dtypes, float and int8 output); the 2-conv block0 at F = 8, 32
+           and 128 in its three modes; NMS at N = 87553 and 120000 (read
+           from device memory); then paths (a)-(d) through Detector.detect
+           and Trainer.run_step with the kernels on, float32 kernels
+           against plain versions as [detect], [detect-int8] and [train]
+           match them, and the launches of the path's kernels: (a)
+           vgg_small with a 9x9 ROI pool, served and one train step; (b)
+           one train step on 3008x480 frames (a 188-row map); (c)
+           vgg_small with a first layer of 32 filters served float and
+           int8, and the tiny config (8 filters) served; (d) vgg_large
+           with a first block of 32 filters, float and int8
   cli      ``python -m frcnn_tpu_torch --device cuda`` in this process on the
            data phase's PNG files with a config JSON that turns the kernels
            on: import-duplo, train (4 steps, snapshots at 2 and 4, metrics,
@@ -194,7 +213,7 @@ Phases, each printing one flushed line with its seconds:
            224x800, kernels, remat) over a world-size-1 NCCL group, with
            its kernel launches
   bench    ``frcnn_tpu_torch.bench``'s JSON record for bf16, pallas+s2d,
-           int8s+pallas+s2d+s8p and imagenet+int8s+pallas+s2d at B=8, 8
+           int8s+pallas+s2d+s8p and imagenet+int8s+pallas+s2d at B=8, 2
            iterations, each mode's kernel launches per call checked; the
            float32 pallas+s2d program (weights that carry load + stress
            biases; proposals and detections nonzero) through the kernels
@@ -203,7 +222,7 @@ Phases, each printing one flushed line with its seconds:
            tailparts, pallas+s2d) and ``tools/profile_train.py`` (step,
            grad, bwdparts with the kernels), B=8, 450x800: ms per stage
   micro    tools/bench_block0.py (B=2, every variant, then normparts),
-           tools/bench_pool_bwd.py and tools/bench_scan.py at 5
+           tools/bench_pool_bwd.py and tools/bench_scan.py at 2
            iterations: their lines, and the block0 and pool backward
            kernels' launches in them
   accuracy 24 duplo-scale synthetic scenes and the detect phase's weights
@@ -226,7 +245,9 @@ and the pool backward ``launches_train_large`` and
 and ``ms_api`` by public call, its ``large_n`` cases (N past 2048: kernel
 ms, launches, bound) and ``published`` (the 6000 -> 300 detect: ms and
 device ms per detect, device ms by N), the ROI pool's
-``launches_data_jpeg`` (the vgg_large steps from JPEG); row 7's ``mm`` and
+``launches_data_jpeg`` (the vgg_large steps from JPEG); rows 1, 2, 3, 4
+and 6's ``shapes`` (each [shapes] case: its launches, max abs err, ms,
+plain ms and bound); row 7's ``mm`` and
 ``mm_sync`` with ``library_device_ms``, their ``bf16`` mode and their
 ``chain`` shape, ``mm``'s ``chain_sweep``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -748,19 +769,20 @@ def check_roi_pool(gen):
             "max_abs_err": 0.0, "library_ms": None}
 
 
-def _roi_bound(fm, rects, valid, out, k: int):
+def _roi_bound(fm, rects, valid, out, k: int, kw=None):
     """Least time of the ROI-pool forward on these inputs: the map, rects,
     valid flags and output moved once; one compare per window cell of
-    each valid roi's bins."""
+    each valid roi's bins (k x k bins, or k x kw)."""
     C = fm.shape[-1]
+    kw = k if kw is None else kw
     r = rects.to(torch.int64)[valid].cpu()
     ext_x = (r[:, 2] - r[:, 0])[:, None]
     ext_y = (r[:, 3] - r[:, 1])[:, None]
-    b = torch.arange(k)
-    bins_x = -torch.div(-(b + 1) * ext_x, k, rounding_mode="floor") \
-        - torch.div(b * ext_x, k, rounding_mode="floor")
-    bins_y = -torch.div(-(b + 1) * ext_y, k, rounding_mode="floor") \
-        - torch.div(b * ext_y, k, rounding_mode="floor")
+    bx, by_ = torch.arange(kw), torch.arange(k)
+    bins_x = -torch.div(-(bx + 1) * ext_x, kw, rounding_mode="floor") \
+        - torch.div(bx * ext_x, kw, rounding_mode="floor")
+    bins_y = -torch.div(-(by_ + 1) * ext_y, k, rounding_mode="floor") \
+        - torch.div(by_ * ext_y, k, rounding_mode="floor")
     n_cmp = float((bins_y.sum(-1) * bins_x.sum(-1)).sum()) * C
     n_bytes = (fm.numel() + out.numel()) * fm.element_size() \
         + rects.numel() * 4 + valid.numel()
@@ -1010,26 +1032,34 @@ def phase_api(kernels, smi: str):
             picks = ok.reshape(-1, API_MAX_OUT).sum(1)
             parts.append(f"{name} N={n}: 1 launch, picks per image "
                          f"{int(picks.min())}-{int(picks.max())}")
-    n = K.MAX_BOXES + 1
-    big = (torch.zeros((1, n, 4), device="cuda"),
-           torch.zeros((1, n), device="cuda"),
-           torch.zeros((1, n), dtype=torch.int64, device="cuda"),
-           torch.ones((1, n), dtype=torch.bool, device="cuda"))
-    for name in ("nms", "per_class_nms"):
-        _zero_launches()
-        try:
-            calls[name](*big)
-        except ValueError as e:
-            if str(K.MAX_BOXES) not in str(e) or _launches():
-                raise AssertionError(f"api {name} N={n}: {e}; launches "
-                                     f"{_launches()}") from e
-        else:
-            raise AssertionError(f"api {name} N={n}: no ValueError")
+    # past the largest staged image the blocks read their boxes from
+    # device memory; past MAX_DIRECT (the alive bitset fills the shared
+    # memory) a ValueError names the limit before any launch
+    for n in (K.MAX_BOXES + 1, K.MAX_DIRECT + 1):
+        big = (torch.zeros((1, n, 4), device="cuda"),
+               torch.zeros((1, n), device="cuda"),
+               torch.zeros((1, n), dtype=torch.int64, device="cuda"),
+               torch.ones((1, n), dtype=torch.bool, device="cuda"))
+        for name in ("nms", "per_class_nms"):
+            if n <= K.MAX_DIRECT:
+                one_launch(f"{name} N={n}", calls[name], big)
+                entry["launches_api"][f"{name}_N{n}"] = 1
+                continue
+            _zero_launches()
+            try:
+                calls[name](*big)
+            except ValueError as e:
+                if str(K.MAX_DIRECT) not in str(e) or _launches():
+                    raise AssertionError(f"api {name} N={n}: {e}; launches "
+                                         f"{_launches()}") from e
+            else:
+                raise AssertionError(f"api {name} N={n}: no ValueError")
     log("api", f"nine top-level names resolve; B={B} N={API_N} "
         f"{API_CLASSES} classes thr {PROPOSAL_NMS_IOU}/{CLASS_NMS_IOU} "
         f"max_out {API_MAX_OUT}, indices bitwise the CPU copies': "
-        + "; ".join(parts) + f"; N={n} (past the kernel's limit) raises "
-        f"ValueError, no launch; {smi}", t)
+        + "; ".join(parts) + f"; N={K.MAX_BOXES + 1} (past the staged "
+        f"limit) 1 launch each, bitwise the CPU copies'; N={n} (past the "
+        f"kernel's limit) raises ValueError, no launch; {smi}", t)
 
 
 def phase_kernels():
@@ -1404,19 +1434,19 @@ def phase_detect(kernels):
     torch.cuda.synchronize()
     for m in modules.values():
         m.KERNEL.launches = 0
-    n_calls = 5
+    n_calls = 3
     t_run = time.perf_counter()
     outs = [det.detect(frames, true_hw) for _ in range(n_calls)]
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t_run) / n_calls
     launches = {k: m.KERNEL.launches for k, m in modules.items()}
-    dev_ms = time_ms(lambda: det.detect((lum4, chroma), hw_dev), reps=10)
+    dev_ms = time_ms(lambda: det.detect((lum4, chroma), hw_dev), reps=5)
     # uint8 frames already on the card are unwired and packed there
     frames_dev = torch.from_numpy(frames).cuda()
     for a, b in zip(block0_kernel.pack_s2d(
             unwire_uint8(frames_dev, cfg.color_space)), (lum4, chroma)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
-    card_ms = time_ms(lambda: det.detect(frames_dev, hw_dev), reps=10)
+    card_ms = time_ms(lambda: det.detect(frames_dev, hw_dev), reps=5)
     out = outs[-1]
     n_in = int(det.last_counts["proposals_in"].sum())
     n_roi = int(out.proposals_valid.sum())
@@ -1710,7 +1740,7 @@ def phase_profile(det, planes, hw_dev):
 
 # -- detect-large ---------------------------------------------------------------
 
-LARGE_CALLS = 5
+LARGE_CALLS = 3
 
 
 def phase_detect_large(kernels):
@@ -1783,7 +1813,7 @@ def phase_detect_large(kernels):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t_run) / LARGE_CALLS
         launches = {k: m.KERNEL.launches for k, m in modules.items()}
-        dev_ms = time_ms(lambda: det.detect(pl, true_hw), reps=10)
+        dev_ms = time_ms(lambda: det.detect(pl, true_hw), reps=5)
         out = outs[-1]
         n_in = int(det.last_counts["proposals_in"].sum())
         n_roi = int(out.proposals_valid.sum())
@@ -1826,7 +1856,7 @@ def phase_detect_large(kernels):
 
 # -- detect-int8 --------------------------------------------------------------
 
-INT8_CALLS = 5
+INT8_CALLS = 3
 
 
 @contextlib.contextmanager
@@ -1968,7 +1998,7 @@ def _int8_family(phase, cfg, pnet, cnet, seed, block0_kernel_name):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t_run) / INT8_CALLS
         launches = {k: REGISTRY[k].launches for k in counted}
-        dev_ms = time_ms(lambda: det.detect(planes, true_hw), reps=10)
+        dev_ms = time_ms(lambda: det.detect(planes, true_hw), reps=5)
         out = outs[-1]
         n_in = int(det.last_counts["proposals_in"].sum())
         n_roi = int(out.proposals_valid.sum())
@@ -2243,8 +2273,9 @@ def check_roi_pool_bwd(gen):
             fm, rects, valid, g, k, k)
         ms = time_ms(run)
         split = _roi_pass_split(run)
+        # one call: the plain version takes ~1 s here
         pms = time_ms(lambda: plain.adaptive_max_pool_backward(
-            fm, rects, valid, g, k, k), reps=3, warmup=1)
+            fm, rects, valid, g, k, k), reps=1, warmup=0)
         n_valid = int(valid.sum())
         # operations: two compares per window cell of the forward's
         # recompute
@@ -2387,7 +2418,7 @@ def phase_train_kernels():
 
 # -- train ----------------------------------------------------------------------
 
-TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 
 
 def _train_config(compute: str):
@@ -2400,21 +2431,21 @@ def _train_config(compute: str):
                                    images_per_step=B))
 
 
-def _train_batch(cfg, seed: int, hw=IMAGE_HW):
-    """A TrainBatch on the card: the seeded uint8 frames of bucket ``hw``
-    (unwired by the objective), their six shaded rectangles as gt boxes
-    and classes."""
+def _train_batch(cfg, seed: int, hw=IMAGE_HW, b: int = B):
+    """A TrainBatch on the card: ``b`` seeded uint8 frames of bucket
+    ``hw`` (unwired by the objective), their six shaded rectangles as gt
+    boxes and classes."""
     from frcnn_tpu_torch.train.objective import TrainBatch
 
-    frames, boxes, classes = _frames(seed, B, hw)
+    frames, boxes, classes = _frames(seed, b, hw)
     G = cfg.shapes.max_gt
-    gt = np.zeros((B, G, 4), np.float32)
-    gc = np.zeros((B, G), np.int32)
-    gm = np.zeros((B, G), bool)
+    gt = np.zeros((b, G, 4), np.float32)
+    gc = np.zeros((b, G), np.int32)
+    gm = np.zeros((b, G), bool)
     gt[:, :6], gc[:, :6], gm[:, :6] = boxes, classes, True
-    true_hw = np.tile(np.asarray([hw], np.int32), (B, 1))
+    true_hw = np.tile(np.asarray([hw], np.int32), (b, 1))
     return TrainBatch(frames, true_hw, gt, gc, gm,
-                      np.zeros(B, bool)).to("cuda")
+                      np.zeros(b, bool)).to("cuda")
 
 
 def _step_grads(cfg, batches, pool_vjp: str):
@@ -3614,11 +3645,11 @@ BENCH_MODES = {      # mode -> the kernels its program launches
     "imagenet+int8s+pallas+s2d": {"block0_2conv_int8", "nms_keep_mask",
                                   "roi_pool"},
 }
-BENCH_ITERS = 8
+BENCH_ITERS = 2
 
 
 def phase_bench(kernels, device: str = "cuda"):
-    """``frcnn_tpu_torch.bench``'s measurement at B=8, 8 iterations, for
+    """``frcnn_tpu_torch.bench``'s measurement at B=8, 2 iterations, for
     four modes: one JSON record each, with the kernel launches per timed
     call (each mode's kernels, and none for bf16); then the float32
     ``pallas+s2d`` program, with weights that carry load
@@ -3665,7 +3696,7 @@ def phase_bench(kernels, device: str = "cuda"):
 
 # -- the stage profilers -----------------------------------------------------------
 
-PROFILE_N = 8
+PROFILE_N = 2
 
 
 def phase_profile_stages(device: str = "cuda"):
@@ -4017,14 +4048,14 @@ def phase_probe(kernels):
 
 # -- the micro-benchmarks ------------------------------------------------------------
 
-MICRO_ITERS = 5
+MICRO_ITERS = 2
 MICRO_BLOCK0_B = 2
 
 
 def phase_micro(kernels):
     """``tools/bench_block0.py`` (B=2, every variant, then ``normparts``),
     ``tools/bench_pool_bwd.py`` and ``tools/bench_scan.py`` through their
-    ``main`` at 5 iterations, their lines printed; the block0 kernel's and
+    ``main`` at 2 iterations, their lines printed; the block0 kernel's and
     the pool backward kernel's launches in them."""
     from frcnn_tpu_torch.tools import bench_block0, bench_pool_bwd, bench_scan
 
@@ -4217,6 +4248,495 @@ def _photo_scenes(root: Path):
         f"skipped and logged ({skipped[0]!r})", t)
 
 
+# -- shapes -------------------------------------------------------------------
+# Every shape the Pallas kernels of rows 1, 2, 3, 4 and 6 take that the
+# published configurations do not reach: kernel-level cases against the
+# plain versions, then paths (a)-(d) through Detector.detect and
+# Trainer.run_step with the kernels on.
+
+SHAPE_ROI_BINS = ((9, 9), (14, 14), (3, 16))     # at C = 384
+SHAPE_ROI_C = (12, 20)                           # at 6x6
+SHAPE_ROI_D = 32
+# row 4 only: (B, H, W, C, D) at 6x6; a 4-row map 32768 wide, then row
+# bins of 33 and 68 rows (two- and three-word tie masks)
+SHAPE_ROI_BWD_MAPS = ((2, 4, 32768, 16, 32), (2, 188, 50, 64, 32),
+                      (2, 400, 50, 64, 32))
+SHAPE_BLOCK0_F = (8, 24, 96, 128)
+SHAPE_2CONV_F = (8, 32, 128)
+SHAPE_2CONV_BHW = (2, 480, 1000)
+SHAPE_NMS = ((87553, 100), (120000, 100))        # (N, picks) at B = 2
+POOL9 = 9                                        # path (a)'s ROI pool
+TALL_HW, TALL_B = (3008, 480), 2                 # path (b)
+NARROW_F = 32                                    # paths (c) and (d)
+SHAPE_CALLS = 1
+
+
+def _shape_record(kernels, name: str, case: str, launches: int, err: float,
+                  ms: float, pms: float, bms: float, by: str) -> None:
+    kernels[name].setdefault("shapes", []).append(
+        {"case": case, "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": pms, "bound_ms": bms, "bound_by": by})
+
+
+def _one_launch(kernel, fn):
+    """``fn()`` with ``kernel``'s launches counted: (result, launches)."""
+    kernel.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernel.launches
+
+
+def _levels(gen, shape, dtype):
+    """A map of four levels (ties inside bins and across them) on the
+    card."""
+    return (torch.randint(0, 4, shape, generator=gen).float() / 4).to(
+        dtype).cuda()
+
+
+def _shape_rects(gen, b: int, H: int, W: int, D: int, span: float = 0.8):
+    """D prepared rects per image of up to ``span`` of the map, the first
+    of each image the whole map (the tallest row bins), ~3/4 valid."""
+    from frcnn_tpu_torch.ops import roi_pool as plain
+
+    p0 = torch.rand(b, D, 2, generator=gen) * torch.tensor([W, H])
+    ext = torch.rand(b, D, 2, generator=gen) * torch.tensor([W, H]) * span
+    raw = torch.cat([p0 - 2, p0 + ext], dim=-1).floor()
+    raw[:, 0] = torch.tensor([0.0, 0.0, W, H])
+    rects = plain.prepare_roi_rects(raw, float(W), float(H))
+    valid = torch.rand(b, D, generator=gen) < 0.75
+    valid[:, 0] = True
+    return rects.cuda(), valid.cuda()
+
+
+def _roi_bwd_values(K, plain, fm, rects, valid, g, kh, kw, what):
+    """The backward kernel against its plain version (float32 within atol
+    1e-6 and the count of values not bitwise equal, bf16 within one ulp)
+    and two launches bitwise equal; returns (max abs err, launches of the
+    first call, values that differ, the plain call's CUDA-event ms)."""
+    run = lambda: K.adaptive_max_pool_valid_backward(fm, rects, valid, g,
+                                                     kh, kw)
+    got, n = _one_launch(K.BWD_KERNEL, run)
+    again = run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = plain.adaptive_max_pool_backward(fm, rects, valid, g, kh, kw)
+    end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+        raise AssertionError(f"roi_pool_bwd {what}: two launches differ")
+    if fm.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    elif _ulps(got, ref) > 1:
+        raise AssertionError(f"roi_pool_bwd {what}: {_ulps(got, ref)} ulps "
+                             f"apart")
+    err = float((got.float() - ref.float()).abs().max())
+    return err, n, int((got != ref).sum()), start.elapsed_time(end)
+
+
+def shapes_roi_pool(gen, kernels):
+    """Rows 2 and 4 at kh x kw past 8 and C off the 16-byte vector; row 4
+    also on a 32768-wide map and on row bins of more than 32 rows."""
+    from frcnn_tpu_torch.ops import roi_pool as plain
+    from frcnn_tpu_torch.ops import roi_pool_kernel as K
+
+    H, W, _ = FM_HWC
+    cases = [(2, H, W, 384, SHAPE_ROI_D, kh, kw) for kh, kw in SHAPE_ROI_BINS]
+    cases += [(2, H, W, C, SHAPE_ROI_D, 6, 6) for C in SHAPE_ROI_C]
+    cases += [(b, h, w, c, d, 6, 6) for b, h, w, c, d in SHAPE_ROI_BWD_MAPS]
+    for b, h, w, C, D, kh, kw in cases:
+        t = time.perf_counter()
+        rects, valid = _shape_rects(gen, b, h, w, D)
+        g32 = torch.randn(b, D, kh, kw, C, generator=gen).cuda()
+        fm32 = _levels(gen, (b, h, w, C), torch.float32)
+        route = K.backward_plan(D, h, w, C, kh, kw)
+        parts = []
+        for dt in (torch.float32, torch.bfloat16):
+            fm, g = fm32.to(dt), g32.to(dt)
+            what = f"B={b} {h}x{w}x{C} {kh}x{kw} {str(dt)[6:]}"
+            forward = w < 32768     # the 32768-wide map: backward only
+            if forward:
+                got, nf = _one_launch(K.KERNEL, lambda: (
+                    K.adaptive_max_pool_valid(fm, rects, valid, kh, kw)))
+                ref = plain.adaptive_max_pool(fm, rects, valid, kh, kw)
+                bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+                if not torch.equal(got.view(bits), ref.view(bits)):
+                    raise AssertionError(f"roi_pool {what}: kernel and plain "
+                                         f"differ")
+            err, nb, n_diff, pms_b = _roi_bwd_values(
+                K, plain, fm, rects, valid, g, kh, kw, what)
+            ms_b = time_ms(lambda: K.adaptive_max_pool_valid_backward(
+                fm, rects, valid, g, kh, kw), reps=3, warmup=1)
+            r = rects.to(torch.int64)[valid].cpu()
+            cells = float(((r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])).sum())
+            n_bytes = (2 * fm.numel() + int(valid.sum()) * kh * kw * C) \
+                * fm.element_size() + rects.numel() * 4 + valid.numel()
+            bms_b, by_b = bound_ms(n_bytes, 2.0 * cells * C, dt)
+            _shape_record(kernels, "roi_pool_bwd", what, nb, err, ms_b, pms_b,
+                          bms_b, by_b)
+            text = (f"{str(dt)[6:]}: backward max abs err {err:.3g}, "
+                    f"{n_diff} values not bitwise, {nb} launch, {ms_b:.4f} ms"
+                    f" (plain {pms_b:.2f}, bound {bms_b:.5f} {by_b})")
+            if forward:
+                ms_f = time_ms(lambda: K.adaptive_max_pool_valid(
+                    fm, rects, valid, kh, kw), reps=5, warmup=1)
+                pms_f = time_ms(lambda: plain.adaptive_max_pool(
+                    fm, rects, valid, kh, kw), reps=1, warmup=0)
+                bms_f, by_f = _roi_bound(fm, rects, valid, got, kh, kw)
+                _shape_record(kernels, "roi_pool", what, nf, 0.0, ms_f,
+                              pms_f, bms_f, by_f)
+                text = (f"{str(dt)[6:]}: forward bitwise, {nf} launch, "
+                        f"{ms_f:.4f} ms (plain {pms_f:.2f}, bound "
+                        f"{bms_f:.5f} {by_f}); " + text.split(": ", 1)[1])
+            parts.append(text)
+        log("shapes", f"roi_pool B={b} {h}x{w}x{C}, {D} rects/image "
+            f"({int(valid.sum())} valid), {kh}x{kw} (forward route "
+            f"{K.forward_plan(C, kh, kw, torch.bfloat16)}, backward "
+            f"(route, words) {route}): " + "; ".join(parts), t)
+
+
+def shapes_block0(gen, kernels):
+    """Row 3 at F = 8, 24, 96 and 128: both dtypes, both output modes."""
+    from frcnn_tpu_torch.ops import block0_kernel as K
+
+    H, W = IMAGE_HW
+    planes = K.pack_padded(torch.randn(B, H + 2, W + 2, 3,
+                                       generator=gen).cuda())
+    slope = torch.tensor([0.25], device="cuda")
+    for Fo in SHAPE_BLOCK0_F:
+        t = time.perf_counter()
+        w = (torch.randn(Fo, 3, 3, 3, generator=gen) * 0.3).cuda()
+        bias = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+        parts = []
+        for dt in (torch.float32, torch.bfloat16):
+            w27, b32 = K.block0_weights(w, bias, dt)
+            l, c = (x.to(dt) for x in planes)
+            (got, err, _, n_mis), n = _one_launch(
+                K.KERNEL, lambda: _block0_values(K, l, c, w27, b32, slope))
+            inv = _inv(_absmax_scale(K.block0_plain(l, c, w27, b32, slope)))
+            q, nq = _one_launch(K.S8_KERNEL, lambda: K.fused_block0(
+                l, c, w27, b32, slope, inv_out=inv))
+            step, share = _flips(q, K.block0_plain(l, c, w27, b32, slope,
+                                                   inv_out=inv),
+                                 f"block0_s8out F={Fo} {str(dt)[6:]}")
+            if tuple(got.shape) != (B, H // 2, W // 2, Fo):
+                raise AssertionError(f"fused_block0 F={Fo}: shape "
+                                     f"{tuple(got.shape)}")
+            ms = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope))
+            ms_q = time_ms(lambda: K.fused_block0(l, c, w27, b32, slope,
+                                                  inv_out=inv))
+            pms = time_ms(lambda: K.block0_plain(l, c, w27, b32, slope),
+                          reps=3, warmup=0)
+            n_ops = 2.0 * B * (H // 2) * (W // 2) * Fo * 4 * 27
+            into = (l.numel() + c.numel() + 27 * Fo) * l.element_size() \
+                + 4 * (Fo + 2)
+            bms, by = bound_ms(into + got.numel() * got.element_size(),
+                               n_ops, dt)
+            bms_q, by_q = bound_ms(into + q.numel(), n_ops, dt)
+            what = f"F={Fo} {str(dt)[6:]} B={B} {H}x{W}"
+            _shape_record(kernels, "fused_block0", what, n, err, ms, pms, bms,
+                          by)
+            _shape_record(kernels, "block0_s8out", what, nq, float(step),
+                          ms_q, pms, bms_q, by_q)
+            parts.append(f"{str(dt)[6:]} (w27 {tuple(w27.shape)}): float out "
+                         f"max abs err {err:.3g} ({n_mis} values differ), "
+                         f"{n} launch, {ms:.4f} ms (bound {bms:.5f} {by}); "
+                         f"int8 out {step} step apart in {100 * share:.4f}%,"
+                         f" {nq} launch, {ms_q:.4f} ms (bound {bms_q:.5f} "
+                         f"{by_q}); plain {pms:.3f} ms")
+        log("shapes", f"fused_block0 F={Fo} B={B} {H}x{W}: "
+            + "; ".join(parts), t)
+
+
+def shapes_block0_2conv(gen, kernels):
+    """Row 6 at F = 8, 32 and 128 in its three modes: float conv1, int8
+    conv1 (float and int8 out), float conv1 with int8 out."""
+    from frcnn_tpu_torch.models.quant import quantize_weight
+    from frcnn_tpu_torch.ops import block0_2conv_kernel as K
+    from frcnn_tpu_torch.ops.block0_kernel import pack_padded, unpack_s2d
+
+    b, H, W = SHAPE_2CONV_BHW
+    padded = torch.randn(b, H + 2, W + 2, 3, generator=gen).cuda()
+    s0, s1 = 0.25, 0.1
+    for Fo in SHAPE_2CONV_F:
+        t = time.perf_counter()
+        std = (2.0 / (9 * Fo)) ** 0.5
+        w0 = (torch.randn(Fo, 3, 3, 3, generator=gen) * std).cuda()
+        w1 = (torch.randn(Fo, Fo, 3, 3, generator=gen) * std).cuda()
+        b0 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+        b1 = (torch.randn(Fo, generator=gen) * 0.1).cuda()
+        w1q, s_w = quantize_weight(w1)
+        parts = []
+        for dt in (torch.float32, torch.bfloat16):
+            p = K.block0_2conv_weights(w0, b0, w1, b1, s0, s1, dt)
+            l, c = (x.to(dt) for x in pack_padded(padded))
+            what = f"F={Fo} {str(dt)[6:]} B={b} {H}x{W}"
+            (got, err, tol, n_mis), n = _one_launch(
+                K.KERNEL, lambda: _check_2conv_values(K, l, c, p))
+            if tuple(got.shape) != (b, H // 2, W // 2, Fo):
+                raise AssertionError(f"fused_block0_2conv F={Fo}: shape "
+                                     f"{tuple(got.shape)}")
+            y0 = F.conv2d(unpack_s2d(l, c).float(), w0.to(dt).float(), b0)
+            s_y = _absmax_scale(torch.where(y0 >= 0, y0, s0 * y0))
+            del y0
+            wq9, ws = K.block0_2conv_weights_q(w1q, s_w, s_y)
+            qa = (p.w0, p.b0, wq9, p.b1, p.slopes)
+            inv_y = _inv(s_y)
+            (fl, ferr, fshare), nq = _one_launch(
+                K.INT8_KERNEL, lambda: _int8_conv1_values(
+                    K, l, c, qa, ws, inv_y, s_y, w1, what))
+            inv_o = _inv(_absmax_scale(fl))
+            q8 = K.fused_block0_2conv(l, c, *qa, w1_scale=ws, inv_y=inv_y,
+                                      inv_out=inv_o)
+            step, share = _flips(q8, K.block0_2conv_plain(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y, inv_out=inv_o), what)
+            fo = K.fused_block0_2conv(l, c, *p, inv_out=inv_o)
+            fstep, fo_share = _flips(fo, K.block0_2conv_plain(
+                l, c, *p, inv_out=inv_o), f"{what} float conv1, int8 out")
+            ms = time_ms(lambda: K.fused_block0_2conv(l, c, *p), reps=5,
+                         warmup=1)
+            ms_q = time_ms(lambda: K.fused_block0_2conv(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y, inv_out=inv_o), reps=5,
+                warmup=1)
+            ms_fo = time_ms(lambda: K.fused_block0_2conv(
+                l, c, *p, inv_out=inv_o), reps=5, warmup=1)
+            pms = time_ms(lambda: K.block0_2conv_plain(l, c, *p), reps=1,
+                          warmup=0)
+            pms_q = time_ms(lambda: K.block0_2conv_plain(
+                l, c, *qa, w1_scale=ws, inv_y=inv_y, inv_out=inv_o), reps=1,
+                warmup=0)
+            n_pix = float(b * H * W)
+            into = (l.numel() + c.numel() + 27 * Fo) * l.element_size() \
+                + 4 * (2 * Fo + 2)
+            bms, by = bound_ms(into + 9 * Fo * Fo * l.element_size()
+                               + got.numel() * got.element_size(),
+                               2.0 * n_pix * Fo * (27 + 9 * Fo), dt)
+            bms_q, by_q = bound_ms_of(
+                into + 9 * Fo * Fo + 4 * Fo + q8.numel(),
+                {dt: 2.0 * n_pix * Fo * 27,
+                 torch.int8: 2.0 * n_pix * Fo * 9 * Fo})
+            _shape_record(kernels, "fused_block0_2conv", what, n, err, ms, pms,
+                          bms, by)
+            _shape_record(kernels, "block0_2conv_int8", what, nq, float(step),
+                          ms_q, pms_q, bms_q, by_q)
+            parts.append(
+                f"{str(dt)[6:]}: float {n} launch, max abs err {err:.3g} "
+                f"({tol}; {n_mis} differ), {ms:.4f} ms (bound {bms:.5f} {by},"
+                f" plain {pms:.2f}); int8 conv1 {nq} launch, float out "
+                f"{100 * fshare:.4f}% past the float tolerance (max "
+                f"{ferr:.3g}), int8 out {step} step in {100 * share:.4f}%, "
+                f"{ms_q:.4f} ms (bound {bms_q:.5f} {by_q}, plain "
+                f"{pms_q:.2f}); float conv1 int8 out {fstep} step in "
+                f"{100 * fo_share:.4f}%, {ms_fo:.4f} ms")
+            del got, fl, q8, fo
+        torch.cuda.empty_cache()
+        log("shapes", f"fused_block0_2conv F={Fo} (padded to {K.plan(Fo)}) "
+            f"B={b} {H}x{W}: " + "; ".join(parts), t)
+
+
+def shapes_nms(gen, kernels):
+    """Row 1 past the largest staged image (each block reads its share
+    from device memory): N = 87553 and 120000, B = 2, 100 picks."""
+    plain = importlib.import_module(NMS_MODULE)
+    from frcnn_tpu_torch.ops import nms_kernel as K
+
+    for n, m in SHAPE_NMS:
+        t = time.perf_counter()
+        boxes, valid = _scattered(gen, 2, n, (3000.0, 3000.0), 8, 160)
+        boxes, valid = boxes.cuda(), valid.cuda()
+        (keep, _), nl = _one_launch(K.KERNEL, lambda: _nms_equal(
+            K, plain, boxes, valid, 0.7, m, f"N={n}"))
+        ms = time_ms(lambda: K.nms_keep_slots(boxes, valid, 0.7, m), reps=5,
+                     warmup=1)
+        pms = time_ms(lambda: plain.nms_keep_slots(boxes, valid, 0.7, m),
+                      reps=1, warmup=0)
+        picks, bms, by = _nms_stats(keep, boxes, valid, 0.7, m)
+        _shape_record(kernels, "nms_keep_mask", f"B=2 N={n} max_out={m}",
+                      nl, 0.0, ms, pms, bms, by)
+        log("shapes", f"nms_keep_mask B=2 N={n} (direct: {K.plan(n)}) thr "
+            f"0.7 max_out={m}: keep masks and slots bitwise the plain "
+            f"version's, {nl} launch; {picks}; kernel {ms:.4f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.6f} ms ({by})", t)
+
+
+def _shapes_detect(what: str, cfg, pnet, cnet, counted, quantized=False,
+                   ordered=True):
+    """float32 detect through the kernels against the plain versions (as
+    [detect], or as [detect-int8] with block 0 handed over), then bf16
+    serving from packed device planes: launches per call of the kernels
+    in ``counted`` {name: launches per call}, finite and non-empty
+    outputs."""
+    from frcnn_tpu_torch.detect.detector import Detector
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+
+    buckets = [tuple(b) for b in cfg.shapes.buckets()]
+    batches, calib = _int8_batches(cfg, 11, buckets[:1])
+    planes, true_hw = batches[buckets[0]]
+    t = time.perf_counter()
+    _f32()
+    if quantized:
+        _check_f32_int8_detect("shapes", cfg, pnet, cnet, batches, calib)
+    else:
+        cfg32 = cfg.replace(compute_dtype="float32")
+        ker = Detector(cfg32, pnet, cnet, device="cuda").detect(planes,
+                                                                true_hw)
+        ref = Detector(cfg32.replace(pallas_mode="off"), pnet, cnet,
+                       device="cuda").detect(planes, true_hw)
+        torch.cuda.synchronize()
+        _check_f32_detect("shapes", ker, ref, what, t, ordered=ordered)
+    t = time.perf_counter()
+    kw = {"quantized": True, "quant_calibration": calib} if quantized else {}
+    det = Detector(cfg, pnet, cnet, device="cuda", **kw)
+    det.detect(planes, true_hw)                 # warm-up
+    torch.cuda.synchronize()
+    for k in REGISTRY.values():
+        k.launches = 0
+    t_run = time.perf_counter()
+    outs = [det.detect(planes, true_hw) for _ in range(SHAPE_CALLS)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_run) / SHAPE_CALLS * 1e3
+    launches = {k: REGISTRY[k].launches for k in counted}
+    want = {k: n * SHAPE_CALLS for k, n in counted.items()}
+    if launches != want:
+        raise AssertionError(f"shapes {what} bf16: launches {launches}, "
+                             f"expected {want}")
+    out = outs[-1]
+    if not all(torch.isfinite(x).all() for x in
+               (out.boxes, out.confidence, out.fg_score, out.proposals)):
+        raise AssertionError(f"shapes {what} bf16: non-finite outputs")
+    n_roi, n_det = int(out.proposals_valid.sum()), int(out.valid.sum())
+    if n_roi == 0:
+        raise AssertionError(f"shapes {what} bf16: no proposals")
+    log("shapes", f"{what}: bf16 {'int8 ' if quantized else ''}serving "
+        f"B={planes[0].shape[0]} {buckets[0][0]}x{buckets[0][1]}, "
+        f"{wall:.2f} ms/batch, {n_roi} rois, {n_det} detections; launches "
+        f"{launches} over {SHAPE_CALLS} calls", t)
+    del det
+    torch.cuda.empty_cache()
+
+
+def _shapes_train(what: str, cfg, batch):
+    """One float32 step through the kernels against one through the plain
+    versions (as [train]), then one bf16 Trainer.run_step with the kernels
+    on: finite, not skipped, one launch of the ROI pool forward and
+    backward and four of the pool backward."""
+    from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
+    from frcnn_tpu_torch.train.trainer import Trainer
+
+    t = time.perf_counter()
+    _f32()
+    cfg32 = cfg.replace(compute_dtype="float32")
+    (ker,) = _step_grads(cfg32, [batch], "kernel")
+    (ref,) = _step_grads(cfg32.replace(pallas_mode="off"), [batch], "library")
+    worst, worst_name = _assert_steps_close("shapes", f"{what} float32", ker,
+                                            ref)
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device="cuda", seed=0, pool_vjp="kernel")
+    for k in REGISTRY.values():
+        k.launches = 0
+    t_run = time.perf_counter()
+    m = trainer.run_step(batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_run) * 1e3
+    launches = {k: REGISTRY[k].launches
+                for k in ("roi_pool", "roi_pool_bwd", "pool_bwd")}
+    if launches != {"roi_pool": 1, "roi_pool_bwd": 1, "pool_bwd": 4}:
+        raise AssertionError(f"shapes {what} bf16 step: launches {launches}")
+    if m["skipped"] != 0 or not all(np.isfinite(m[k]) for k in
+                                    ("pcls", "preg", "dcls", "dreg")):
+        raise AssertionError(f"shapes {what} bf16 step: skipped or "
+                             f"non-finite {m}")
+    log("shapes", f"{what}: float32 step kernels == plain versions (losses "
+        f"rtol 1e-5, largest relative gradient error {worst:.3g} in "
+        f"{worst_name}); one bf16 Trainer.run_step with kernels ({wall:.1f} "
+        f"ms, first step), launches {launches}, losses pcls {m['pcls']:.4f} "
+        f"preg {m['preg']:.4f} dcls {m['dcls']:.4f} dreg {m['dreg']:.4f}", t)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _duplo_serving(**changes):
+    """vgg_small's serving config at full width (duplo, 6 classes, the
+    smoke's bucket), the detect phase's fg gate, with ``changes``."""
+    from frcnn_tpu_torch.config import duplo_config, serving_config
+
+    base = duplo_config(class_count=6)
+    cfg = serving_config(base.replace(shapes=dataclasses.replace(
+        base.shapes, image_hw=IMAGE_HW)))
+    return cfg.replace(detect_fg_threshold=0.5, **changes)
+
+
+def _narrow_first(cfg, filters: int):
+    """``cfg`` with its first block's convs at ``filters``."""
+    layers = cfg.model.layers
+    return cfg.replace(model=dataclasses.replace(cfg.model, layers=(
+        dataclasses.replace(layers[0], filters=filters),) + tuple(layers[1:])))
+
+
+def shapes_paths():
+    """Paths (a)-(d): the new shapes as configurations reach them."""
+    from frcnn_tpu_torch.config import (
+        RoiPoolingConfig,
+        imagenet_config,
+        serving_config,
+    )
+    from frcnn_tpu_torch.parallel.dryrun import tiny_config
+
+    small = {"nms_keep_mask": 2, "roi_pool": 1, "fused_block0": 1}
+    pool9 = RoiPoolingConfig(kh=POOL9, kw=POOL9)
+    # (a) vgg_small, duplo at full width, a 9x9 ROI pool
+    cfg = _duplo_serving(roi_pooling=pool9)
+    pnet, cnet = _seeded_models(cfg)
+    _shapes_detect(f"(a) {POOL9}x{POOL9} ROI pool", cfg, pnet,
+                   cnet, small)
+    tcfg = _train_config("bfloat16").replace(roi_pooling=pool9)
+    _shapes_train(f"(a) {POOL9}x{POOL9} ROI pool B={B} "
+                  f"{IMAGE_HW[0]}x{IMAGE_HW[1]}", tcfg,
+                  _train_batch(tcfg, 21))
+    # (b) vgg_small on tall frames: a 188-row map, row bins of 33 rows
+    base = _train_config("bfloat16")
+    tcfg = base.replace(max_pixel_size=TALL_HW[0], shapes=dataclasses.replace(
+        base.shapes, image_hw=TALL_HW, images_per_step=TALL_B))
+    _shapes_train(f"(b) tall frames B={TALL_B} "
+                  f"{TALL_HW[0]}x{TALL_HW[1]}", tcfg,
+                  _train_batch(tcfg, 22, TALL_HW, TALL_B))
+    # (c) vgg_small with a narrow first layer, s2d bf16, float and int8;
+    # and the tiny config (a first layer of 8) served with the kernels
+    cfg = _narrow_first(_duplo_serving(), NARROW_F)
+    pnet, cnet = _seeded_models(cfg)
+    what = f"(c) first layer {NARROW_F} filters"
+    _shapes_detect(what, cfg, pnet, cnet, small)
+    _shapes_detect(what, cfg, pnet, cnet, {
+        "nms_keep_mask": 2, "roi_pool": 1, "block0_s8out": 1},
+        quantized=True)
+    cfg = serving_config(tiny_config(B)).replace(
+        compute_dtype="bfloat16", detect_fg_threshold=0.5)
+    pnet, cnet = _seeded_models(cfg)
+    _shapes_detect("(c) tiny config, first layer 8 filters", cfg,
+                   pnet, cnet, small)
+    # (d) vgg_large with a narrow first block, float and int8 at 480x1000
+    cfg = _narrow_first(serving_config(imagenet_config()), NARROW_F).replace(
+        detect_fg_threshold=0.5)
+    pnet, cnet = _seeded_models(cfg, cls_spread=500.0)
+    what = f"(d) vgg_large first block 2 x {NARROW_F} filters"
+    _shapes_detect(what, cfg, pnet, cnet, {
+        "nms_keep_mask": 2, "roi_pool": 1, "fused_block0_2conv": 1},
+        ordered=False)
+    _shapes_detect(what, cfg, pnet, cnet, {
+        "nms_keep_mask": 2, "roi_pool": 1, "block0_2conv_int8": 1},
+        quantized=True)
+
+
+def phase_shapes(kernels):
+    gen = torch.Generator().manual_seed(19)
+    _f32()
+    shapes_roi_pool(gen, kernels)
+    shapes_block0(gen, kernels)
+    shapes_block0_2conv(gen, kernels)
+    shapes_nms(gen, kernels)
+    shapes_paths()
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     name, smi = phase_env()
@@ -4231,6 +4751,7 @@ def main() -> int:
     kernels.update(phase_train_kernels())
     steps_ms = phase_train(kernels)
     phase_train_large(kernels)
+    phase_shapes(kernels)
     with tempfile.TemporaryDirectory() as tmp:
         phase_data(kernels, steps_ms["kernel"], Path(tmp))
         phase_cli(kernels, Path(tmp), smi)
@@ -4261,7 +4782,7 @@ def main() -> int:
                       "device_ms_train_large", "launches_cli",
                       "launches_dryrun_real", "launches_bench",
                       "launches_api", "ms_api", "large_n", "published",
-                      "launches_data_jpeg"):
+                      "launches_data_jpeg", "shapes"):
             if extra in r:
                 line[-1][extra] = r[extra]
     print(json.dumps({"kernels": line}), flush=True)

@@ -70,9 +70,17 @@
 //    as many as the card holds at once, and walk the tiles;
 //    pixels past the ragged edge are computed from zero-filled or
 //    neighbouring plane values and never stored.
+//  * Any F: the host pads w27 with zero columns to a multiple of 64
+//    (ops/block0_kernel.py::block0_weights, once per weight set); a block
+//    computes one 64-channel slice of it (the grid's y), the bias of a
+//    padded channel is 0, and only the F real channels are stored, so the
+//    output is [B, Hc-1, Wc-1, F] with no copy. F = 64 is one slice: the
+//    code and grid of vgg_small's block 0.
 // float32 planes keep the CUDA-core design (TF32 would keep ~3 digits):
 // one thread per output pixel, its 48 patch values in registers, float32
-// FMAs against weights broadcast from shared memory, 16 channels at a time.
+// FMAs against weights broadcast from shared memory, 16 channels at a time
+// (w27 padded to a multiple of 16; F a multiple of 16 stores 16-byte
+// vectors, any other F element by element).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -115,6 +123,21 @@ __device__ __forceinline__ void store_group(int8_t* dst, const float* v,
       make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
 
+// the first n < kGroup channels of a group, one at a time
+__device__ __forceinline__ void store_some(float* dst, const float* v,
+                                           float, int n) {
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k)
+    if (k < n) dst[k] = v[k];
+}
+
+__device__ __forceinline__ void store_some(int8_t* dst, const float* v,
+                                           float inv, int n) {
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k)
+    if (k < n) dst[k] = static_cast<int8_t>(quant8(v[k], inv));
+}
+
 template <typename O>
 __device__ __forceinline__ void block0_cuda_cores(
     const float* __restrict__ lum4, const float* __restrict__ chroma,
@@ -122,10 +145,12 @@ __device__ __forceinline__ void block0_cuda_cores(
     const float* __restrict__ slope, const float* __restrict__ inv_out,
     O* __restrict__ out, int Hc, int Wc, int F) {
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [27][F]
-  float* sb = ws + 27 * F;                      // [F]
-  for (int k = threadIdx.x; k < 27 * F; k += blockDim.x) ws[k] = w27[k];
-  for (int k = threadIdx.x; k < F; k += blockDim.x) sb[k] = bias[k];
+  const int Fp = (F + kGroup - 1) / kGroup * kGroup;   // w27's columns
+  float* ws = reinterpret_cast<float*>(smem4);  // [27][Fp]
+  float* sb = ws + 27 * Fp;                     // [Fp], 0 past F
+  for (int k = threadIdx.x; k < 27 * Fp; k += blockDim.x) ws[k] = w27[k];
+  for (int k = threadIdx.x; k < Fp; k += blockDim.x)
+    sb[k] = k < F ? bias[k] : 0.0f;
   __syncthreads();
 
   const int Ho = Hc - 1, Wo = Wc - 1;
@@ -158,7 +183,7 @@ __device__ __forceinline__ void block0_cuda_cores(
 
   O* dst = out + (((size_t)b * Ho + i) * Wo + j) * F;
 #pragma unroll 1
-  for (int og = 0; og < F; og += kGroup) {
+  for (int og = 0; og < Fp; og += kGroup) {
     float m[kGroup];
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) m[k] = -INFINITY;
@@ -177,7 +202,7 @@ __device__ __forceinline__ void block0_cuda_cores(
             for (int c = 0; c < 3; ++c) {
               const float p = patch[ry + ky][rx + kx][c];
               const float4* wr = reinterpret_cast<const float4*>(
-                  ws + ((ky * 3 + kx) * 3 + c) * F + og);
+                  ws + ((ky * 3 + kx) * 3 + c) * Fp + og);
 #pragma unroll
               for (int q = 0; q < kGroup / 4; ++q) {
                 const float4 wv = wr[q];
@@ -191,13 +216,16 @@ __device__ __forceinline__ void block0_cuda_cores(
         for (int k = 0; k < kGroup; ++k)
           m[k] = fmaxf(m[k], prelu(acc[k] + sb[og + k], a));
       }
-    store_group(dst + og, m, inv);
+    if (F % kGroup == 0)
+      store_group(dst + og, m, inv);
+    else
+      store_some(dst + og, m, inv, F - og);
   }
 }
 
 // -- bf16 planes: tensor cores -----------------------------------------------
 
-constexpr int kF = 64;             // output channels (vgg_small's block 0)
+constexpr int kF = 64;             // output channels of a block's slice
 constexpr int kTH = 4, kTW = 32;   // output rows x columns of a tile
 constexpr int kTC = 256;           // threads: two warpgroups of 64 pixels
 constexpr int kRows = (kTH + 1) * 12;  // staged plane rows: cell rows x 12
@@ -384,19 +412,33 @@ __device__ __forceinline__ void epilogue(const float (&acc)[32], int q,
 
 // Group q's channels of a warp's 16 staged pixels (p0 .. p0 + 15, one
 // output row of the tile) to NHWC: one 32-byte sector (bf16) or 16 bytes
-// (int8) of each pixel, 16 bytes a lane
+// (int8) of each pixel, 16 bytes a lane; of the slice's channels c0 =
+// 64 slice + .., those below F, as 16-byte stores where F is a multiple
+// of a chunk's channels, else element by element
 template <typename O>
 __device__ __forceinline__ void store_group(O* __restrict__ out,
                                             const O* out_s, int p0, int q,
                                             int b, int i, int j0, int Ho,
-                                            int Wo) {
+                                            int Wo, int slice, int F) {
   constexpr int kGC = (int)sizeof(O);   // 16-byte chunks of a group
+  constexpr int kCE = 16 / (int)sizeof(O);   // channels of a chunk
   const int lane = threadIdx.x & 31;
   const int p = p0 + lane / kGC, ch = q * kGC + lane % kGC;
   const int j = j0 + p % kTW;
-  if (lane < 16 * kGC && i < Ho && j < Wo)
-    reinterpret_cast<uint4*>(out + (((size_t)b * Ho + i) * Wo + j) * kF)[ch] =
+  const int c0 = slice * kF + ch * kCE;
+  if (lane < 16 * kGC && i < Ho && j < Wo && c0 < F) {
+    O* dst = out + (((size_t)b * Ho + i) * Wo + j) * F + c0;
+    const uint4 v =
         reinterpret_cast<const uint4*>(out_s + p * kF)[out_chunk<O>(p, ch)];
+    if (F % kCE == 0 && c0 + kCE <= F) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const O* e = reinterpret_cast<const O*>(&v);
+#pragma unroll
+      for (int k = 0; k < kCE; ++k)
+        if (c0 + k < F) dst[k] = e[k];
+    }
+  }
 }
 
 // Start group q's three k16 products (64 pixels x its 64 B columns) into d
@@ -418,7 +460,7 @@ __device__ __forceinline__ void block0_tensor_cores(
     const __nv_bfloat16* __restrict__ chroma,
     const __nv_bfloat16* __restrict__ w27, const float* __restrict__ bias,
     const float* __restrict__ slope, const float* __restrict__ inv_out,
-    O* __restrict__ out, int batch, int Hc, int Wc) {
+    O* __restrict__ out, int batch, int Hc, int Wc, int F) {
   using SM = Smem<O>;
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
@@ -446,12 +488,15 @@ __device__ __forceinline__ void block0_tensor_cores(
              (tile % tiles_img) / tiles_x * kTH, tile % tiles_x * kTW, batch,
              Hc, Wc);
   cp_async_commit();
-  // B from w27, staged in the output tile's space (one round of global
-  // loads)
+  // B from the slice's columns of w27 (padded to Fp), staged in the output
+  // tile's space (one round of global loads); a padded channel's bias is 0
+  const int slice = blockIdx.y, Fp = gridDim.y * kF;
   __nv_bfloat16* w27s = reinterpret_cast<__nv_bfloat16*>(out_s);
   static_assert(27 * kF * 2 <= kTH * kTW * kF, "w27 fits the output tile");
-  for (int k = tid; k < 27 * kF; k += kTC) w27s[k] = w27[k];
-  for (int k = tid; k < kF; k += kTC) bs[k] = bias[k];
+  for (int k = tid; k < 27 * kF; k += kTC)
+    w27s[k] = w27[(k / kF) * Fp + slice * kF + k % kF];
+  for (int k = tid; k < kF; k += kTC)
+    bs[k] = slice * kF + k < F ? bias[slice * kF + k] : 0.0f;
   __syncthreads();
   static_assert(kTC == 4 * kF, "a thread per row of B");
   build_b_row(bsm, reinterpret_cast<const uint16_t*>(w27s), tid);
@@ -493,7 +538,7 @@ __device__ __forceinline__ void block0_tensor_cores(
     auto finish = [&](const float(&acc)[32], int q) {
       epilogue(acc, q, bs, a, inv, out_s, p0);
       __syncwarp();
-      store_group(out, out_s, p0, q, b, i, j0, Ho, Wo);
+      store_group(out, out_s, p0, q, b, i, j0, Ho, Wo, slice, F);
     };
     mma_group(acc0, af, b_base, 0);
     mma_group(acc1, af, b_base, 1);
@@ -529,7 +574,7 @@ __global__ void __launch_bounds__(kCudaCores<T> ? kPix : kTC,
                          Wc, F);
   else
     block0_tensor_cores<O>(lum4, chroma, w27, bias, slope, inv_out, out,
-                           batch, Hc, Wc);
+                           batch, Hc, Wc, F);
 }
 
 template <typename T, typename O>
@@ -539,11 +584,13 @@ int launch(const void* lum4, const void* chroma, const void* w27,
   const int Ho = Hc - 1, Wo = Wc - 1;
   if (std::is_same<O, int8_t>::value && inv_out == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (F < 1) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
   constexpr auto kernel = block0_kernel<T, O>;
   if constexpr (kCudaCores<T>) {
-    if (F % kGroup != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)28 * F * sizeof(float);
+    // w27 [27, F padded to a multiple of 16], bias [F]
+    const size_t smem =
+        (size_t)28 * ((F + kGroup - 1) / kGroup * kGroup) * sizeof(float);
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -556,7 +603,9 @@ int launch(const void* lum4, const void* chroma, const void* w27,
         static_cast<const float*>(slope), static_cast<const float*>(inv_out),
         static_cast<O*>(out), batch, Hc, Wc, F);
   } else {
-    if (F != kF) return (int)cudaErrorInvalidValue;
+    // w27 [27, F padded to a multiple of 64], bias [F]: a 64-channel
+    // slice per block (grid y)
+    const int slices = (F + kF - 1) / kF;
     // element offsets of the planes fit in 32 bits
     if ((long long)batch * 8 * Hc * Wc > 0x7fffffffLL)
       return (int)cudaErrorInvalidValue;
@@ -568,7 +617,10 @@ int launch(const void* lum4, const void* chroma, const void* w27,
     const long long tiles = (long long)batch * ((Ho + kTH - 1) / kTH) *
                             ((Wo + kTW - 1) / kTW);
     if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int grid = (int)(tiles < resident ? tiles : resident);
+    // the card's resident blocks shared among the slices
+    const int per_slice = resident / slices > 0 ? resident / slices : 1;
+    const dim3 grid((unsigned)(tiles < per_slice ? tiles : per_slice),
+                    slices);
     kernel<<<grid, kTC, smem, (cudaStream_t)stream>>>(
         static_cast<const T*>(lum4), static_cast<const T*>(chroma),
         static_cast<const T*>(w27), static_cast<const float*>(bias),

@@ -95,6 +95,22 @@
 //     quantization), 16-byte NHWC stores (staged through shared memory on
 //     the tensor-core paths); the accumulator layout of wgmma is that of
 //     mma.sync, one m16 tile per warp.
+// Any F (the Pallas kernel takes any): the host pads the weights once per
+// weight set (ops/block0_2conv_kernel.py::block0_2conv_weights) to Fp, a
+// multiple of 64: zero conv0 columns, zero conv1 rows and columns, a zero
+// dequant column; the biases keep F and read as 0 past it. A padded y0
+// channel is prelu0(0 + 0) = 0 and meets zero w1 rows, so the F real
+// channels are exact, and only they are stored: NHWC [B, Ho, Wo, F].
+//  * F <= 64 (Fp = 64): the design above as it is (vgg_large's F = 64 runs
+//    this code and this tile);
+//  * F > 64 (the kMulti instances): a work item is (tile, 64-channel group
+//    go of conv1's outputs). For each 64-channel group gi of y0, in order,
+//    the block computes conv0's group gi of the tile into the y0 buffer,
+//    loads the 9 x 64 x 64 slice (go, gi) of w1 into the w1 buffer, and
+//    adds conv1's products over gi to the accumulators, which stay in
+//    registers until the epilogue. Shared memory is the F = 64 plan: w1 is
+//    no longer resident, conv0 runs Fp / 64 times per tile and group go,
+//    so conv0's work grows by Fp / 64 (accepted: a right kernel first).
 // Shared memory of the bf16 instance, in bytes: w1 73,728; y0 84,480 (10 x
 // 66 pixels x 64 x 2); staging 8,064 (84 rows x 48 x 2) and its 84 row
 // offsets 336; P 4,896 (3 x 12 x 68 x 2); w0 5,120 (64 x 40 x 2); b0, b1
@@ -252,6 +268,14 @@ __device__ __forceinline__ void store4(int8_t* dst, const float (&m)[4],
       (quant8(m[2], inv) << 16) | (quant8(m[3], inv) << 24);
 }
 
+// one output channel to device memory (F not a multiple of the vector)
+__device__ __forceinline__ void store1(float* dst, float v, float) {
+  *dst = v;
+}
+__device__ __forceinline__ void store1(int8_t* dst, float v, float inv) {
+  *dst = static_cast<int8_t>(quant8(v, inv));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -347,33 +371,26 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// conv1 + (dequant +) PReLU + pool on wgmma: warpgroup pr owns pooled row
-// pr, i.e. fine rows 2pr and 2pr + 1 as two 64-pixel M tiles; warp w of
-// the group loads the A rows 16w..16w+15 of both (fine columns cs = 16w)
-// with ldmatrix, the group's wgmma reads w1 from shared memory. Steps are
-// (tap, k slice); the next step's A fragments load while this step's
-// products run. The accumulator layout is mma.sync's, so the epilogue is
-// pool_store's.
-template <bool kQ, typename Y, typename O>
-__device__ __forceinline__ void conv1_pool_wgmma(const Y* y0s, const Y* w1s,
-                                                 const float* wss,
-                                                 const float* b1s, float a1,
-                                                 float inv_out, O* out_s) {
+// conv1's accumulators: int32 sums of int8 products, or float32
+template <bool kQ>
+using Acc1 = typename std::conditional<kQ, int, float>::type;
+
+// conv1 on wgmma, added to acc: warpgroup pr owns pooled row pr, i.e. fine
+// rows 2pr and 2pr + 1 as two 64-pixel M tiles; warp w of the group loads
+// the A rows 16w..16w+15 of both (fine columns cs = 16w) with ldmatrix, the
+// group's wgmma reads w1 from shared memory. Steps are (tap, k slice); the
+// next step's A fragments load while this step's products run.
+template <bool kQ, typename Y>
+__device__ __forceinline__ void conv1_wgmma(Acc1<kQ> (&acc)[2][32],
+                                            const Y* y0s, const Y* w1s) {
   constexpr int CT = 2 * 32 + 2;
   constexpr int kSlices = kQ ? 2 : 4;          // k slices per tap
   constexpr int kSteps = 9 * kSlices;
   constexpr int kRowBytes = kF * (int)sizeof(Y);
-  using Acc = typename std::conditional<kQ, int, float>::type;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pr = warp / 4, cs = (warp % 4) * 16;
   const int am = lane & 15, ak = lane >> 4;
   const uint32_t y0_base = smem_addr(y0s), w1_base = smem_addr(w1s);
-
-  Acc acc[2][32];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < 32; ++k) acc[t][k] = 0;
 
   auto load_a = [&](uint32_t (&dst)[2][4], int step) {
     const int tap = step / kSlices, kc = step % kSlices;
@@ -414,7 +431,18 @@ __device__ __forceinline__ void conv1_pool_wgmma(const Y* y0s, const Y* w1s,
     mma_step(a1f, a0, step + 1);
   }
   wgmma_wait<0>();
+}
 
+// (dequant +) bias, PReLU and the pool of conv1's accumulators into the
+// staged output tile. The accumulator layout is mma.sync's, so the
+// epilogue is pool_store's.
+template <bool kQ, typename O>
+__device__ __forceinline__ void conv1_epilogue(const Acc1<kQ> (&acc)[2][32],
+                                               const float* wss,
+                                               const float* b1s, float a1,
+                                               float inv_out, O* out_s) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pr = warp / 4, cs = (warp % 4) * 16;
   // accumulator (t, 4n + e): fine row 2pr+t, fine column cs + g + 8*(e >> 1),
   // channel 8n + 2*tig + (e & 1), with g = lane >> 2, tig = lane & 3
   const int tig = lane & 3;
@@ -440,32 +468,39 @@ __device__ __forceinline__ void conv1_pool_wgmma(const Y* y0s, const Y* w1s,
   pool_store(v, pr, cs, inv_out, out_s);
 }
 
-// conv1 + PReLU + pool on CUDA cores (float32, no TF32); writes out.
+template <bool kQ>
+__device__ __forceinline__ void zero_acc(Acc1<kQ> (&acc)[2][32]) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[t][k] = 0;
+}
+
+// conv1 on CUDA cores (float32, no TF32), added to acc: a thread owns a
+// pooled pixel and four output channels of the tile, per item; w1 goes
+// through shared memory a tap at a time, from w1g, the (output group,
+// input group) slice's first element of the [9, Fp, Fp] weights.
 template <typename O>
-__device__ __forceinline__ void conv1_pool_f32(
-    const float* y0s, float* w1s, const float* __restrict__ w1,
-    const float* b1s, float a1, float inv_out, O* __restrict__ out, int b,
-    int pi0, int pj0, int Ho, int Wo) {
+using AccF32 = float[Mode<float, false, O>::PH * Mode<float, false, O>::PW *
+                     (kF / 4) / Mode<float, false, O>::kThreads][4][4];
+
+template <typename O>
+__device__ __forceinline__ void conv1_f32(AccF32<O>& acc, const float* y0s,
+                                          float* w1s,
+                                          const float* __restrict__ w1g,
+                                          int Fp) {
   using M = Mode<float, false, O>;
   constexpr int CT = Smem<float, false, O>::CT, NT = M::kThreads;
   constexpr int kItems = M::PH * M::PW * (kF / 4) / NT;
   static_assert(kItems * NT == M::PH * M::PW * (kF / 4), "items");
   const int q = threadIdx.x & 15;  // output channels 4q .. 4q+3
-  float acc[kItems][4][4];
-#pragma unroll
-  for (int s = 0; s < kItems; ++s)
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[s][f][k] = 0.0f;
-
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int dy = tap / 3, dx = tap % 3;
     __syncthreads();  // the previous tap's reads of w1s are done
     for (int k = threadIdx.x; k < kF * kF; k += NT) {
       const int o = k / kF, c = k % kF;  // w1[tap][o][c] -> w1s[c][o]
-      w1s[c * kY0StrideF32 + o] = w1[(tap * kF + o) * kF + c];
+      w1s[c * kY0StrideF32 + o] = w1g[((size_t)tap * Fp + o) * Fp + c];
     }
     __syncthreads();
     int base[kItems][4];
@@ -494,6 +529,22 @@ __device__ __forceinline__ void conv1_pool_f32(
         }
     }
   }
+}
+
+// bias, PReLU and the pool of conv1_f32's accumulators, to out: channels
+// go * 64 + 4q .., those below F
+template <typename O>
+__device__ __forceinline__ void pool_store_f32(const AccF32<O>& acc,
+                                               const float* b1s, float a1,
+                                               float inv_out,
+                                               O* __restrict__ out, int b,
+                                               int pi0, int pj0, int Ho,
+                                               int Wo, int go, int F) {
+  using M = Mode<float, false, O>;
+  constexpr int NT = M::kThreads;
+  constexpr int kItems = M::PH * M::PW * (kF / 4) / NT;
+  const int q = threadIdx.x & 15;
+  const int c0 = go * kF + 4 * q;
 #pragma unroll
   for (int s = 0; s < kItems; ++s) {
     const int pp = (threadIdx.x + s * NT) >> 4;
@@ -507,9 +558,27 @@ __device__ __forceinline__ void conv1_pool_f32(
       for (int f = 1; f < 4; ++f)
         m[k] = fmaxf(m[k], prelu(acc[s][f][k] + bias, a1));
     }
-    if (i < Ho && j < Wo)
-      store4(out + (((size_t)b * Ho + i) * Wo + j) * kF + 4 * q, m, inv_out);
+    if (i < Ho && j < Wo && c0 < F) {
+      O* dst = out + (((size_t)b * Ho + i) * Wo + j) * F + c0;
+      if (F % 4 == 0) {
+        store4(dst, m, inv_out);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c0 + k < F) store1(dst + k, m[k], inv_out);
+      }
+    }
   }
+}
+
+template <typename O>
+__device__ __forceinline__ void zero_acc_f32(AccF32<O>& acc) {
+#pragma unroll
+  for (int s = 0; s < (int)(sizeof(acc) / sizeof(acc[0])); ++s)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[s][f][k] = 0.0f;
 }
 
 
@@ -699,7 +768,103 @@ __device__ __forceinline__ void conv0_f32(const float* ps, const float* w0s,
   }
 }
 
+// conv0's weights and biases of y0 group gi into shared memory: w0 is
+// [27, Fp], a padded channel's bias 0
 template <typename T, bool kQ, typename O>
+__device__ __forceinline__ void load_conv0(const T* __restrict__ w0,
+                                           const float* __restrict__ b0,
+                                           unsigned char* smem, int gi,
+                                           int Fp, int F) {
+  using M = Mode<T, kQ, O>;
+  using SM = Smem<T, kQ, O>;
+  constexpr int NT = M::kThreads;
+  const int tid = threadIdx.x, o0 = gi * kF;
+  if constexpr (M::kTC0) {
+    // w0 transposed, [o][tap] with taps 27-31 zero: B fragments of conv0
+    __nv_bfloat16* w0t = reinterpret_cast<__nv_bfloat16*>(smem + SM::w0_off);
+    for (int k = tid; k < kF * 32; k += NT) {
+      const int o = k / 32, tap = k % 32;
+      w0t[o * kW0Stride + tap] =
+          tap < 27 ? w0[tap * Fp + o0 + o] : __float2bfloat16(0.0f);
+    }
+  } else {
+    float* w0s = reinterpret_cast<float*>(smem + SM::w0_off);
+    for (int k = tid; k < 27 * kF; k += NT)
+      w0s[k] = to_f32(w0[(k / kF) * Fp + o0 + k % kF]);
+  }
+  float* b0s = reinterpret_cast<float*>(smem + SM::b0_off);
+  for (int k = tid; k < kF; k += NT) b0s[k] = o0 + k < F ? b0[o0 + k] : 0.0f;
+}
+
+// conv1's biases (and dequant column, [Fp]) of output group go
+template <typename T, bool kQ, typename O>
+__device__ __forceinline__ void load_conv1_bias(const float* __restrict__ b1,
+                                                const float* __restrict__ ws,
+                                                unsigned char* smem, int go,
+                                                int F) {
+  using SM = Smem<T, kQ, O>;
+  float* b1s = reinterpret_cast<float*>(smem + SM::b1_off);
+  float* wss = reinterpret_cast<float*>(smem + SM::ws_off);
+  const int o0 = go * kF;
+  for (int k = threadIdx.x; k < kF; k += Mode<T, kQ, O>::kThreads) {
+    b1s[k] = o0 + k < F ? b1[o0 + k] : 0.0f;
+    if constexpr (kQ) wss[k] = ws[o0 + k];
+  }
+}
+
+// Start the cp.async copies of w1's slice (output group go, input group
+// gi) of [9, Fp, Fp] into shared memory, swizzled as its tile rows are read
+// (tensor-core conv1)
+template <typename Y>
+__device__ __forceinline__ void load_w1(const void* w1, Y* w1s, int go,
+                                        int gi, int Fp, int nt) {
+  constexpr int kChunks = kF * (int)sizeof(Y) / 16;   // per (tap, o) row
+  constexpr bool kS8 = std::is_same<Y, int8_t>::value;
+  const unsigned char* src = static_cast<const unsigned char*>(w1);
+  for (int k = threadIdx.x; k < 9 * kF * kChunks; k += nt) {
+    const int row = k / kChunks, c = k % kChunks;
+    const int tap = row / kF, o = row % kF;
+    const int dst = kS8 ? s8_chunk(row, c) : (c ^ (row & 7));
+    cp_async16(reinterpret_cast<unsigned char*>(w1s) +
+                   (row * kChunks + dst) * 16,
+               src + (((size_t)tap * Fp + go * kF + o) * Fp + gi * kF) *
+                         sizeof(Y) +
+                   c * 16);
+  }
+}
+
+// The channels [64 go, 64 go + 64) of the staged output tile below F, to
+// NHWC out (tensor-core paths): 16-byte stores where F is a multiple of a
+// chunk's channels, else element by element
+template <typename T, bool kQ, typename O>
+__device__ __forceinline__ void store_tile(O* __restrict__ out,
+                                           const O* out_s, int b, int pi0,
+                                           int pj0, int Ho, int Wo, int go,
+                                           int F) {
+  using M = Mode<T, kQ, O>;
+  constexpr int kCE = 16 / (int)sizeof(O);   // channels of a chunk
+  constexpr int kChunks = kF / kCE;          // per pooled pixel
+  for (int k = threadIdx.x; k < M::PH * M::PW * kChunks; k += M::kThreads) {
+    const int pp = k / kChunks, c = k % kChunks;
+    const int i = pi0 + pp / M::PW, j = pj0 + pp % M::PW;
+    const int c0 = go * kF + c * kCE;
+    if (i < Ho && j < Wo && c0 < F) {
+      O* dst = out + (((size_t)b * Ho + i) * Wo + j) * F + c0;
+      const uint4 v = reinterpret_cast<const uint4*>(out_s + pp * kF)[c];
+      if (F % kCE == 0 && c0 + kCE <= F) {
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        const O* e = reinterpret_cast<const O*>(&v);
+#pragma unroll
+        for (int q = 0; q < kCE; ++q)
+          if (c0 + q < F) dst[q] = e[q];
+      }
+    }
+  }
+}
+
+// kMulti: F > 64 (Fp / 64 groups), a work item per (tile, output group)
+template <typename T, bool kQ, typename O, bool kMulti>
 __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
     block0_2conv_kernel(const T* __restrict__ lum4,
                         const T* __restrict__ chroma,
@@ -710,7 +875,8 @@ __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
                         const float* __restrict__ ws,
                         const float* __restrict__ inv_y,
                         const float* __restrict__ inv_out,
-                        O* __restrict__ out, int batch, int Hc, int Wc) {
+                        O* __restrict__ out, int batch, int Hc, int Wc,
+                        int F) {
   using M = Mode<T, kQ, O>;
   using SM = Smem<T, kQ, O>;
   using Y = typename M::Y;
@@ -727,58 +893,51 @@ __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
   float* wss = reinterpret_cast<float*>(smem + SM::ws_off);
 
   const int Ho = Hc - 1, Wo = Wc - 1, H = 2 * Ho, W = 2 * Wo;
+  const int groups = kMulti ? (F + kF - 1) / kF : 1, Fp = groups * kF;
   const int tiles_x = (Wo + M::PW - 1) / M::PW;
   const int tiles_img = tiles_x * ((Ho + M::PH - 1) / M::PH);
-  const int n_tiles = batch * tiles_img;
+  const int n_items = batch * tiles_img * groups;   // (tile, group go)
   const int tid = threadIdx.x;
-  int tile = blockIdx.x;
-  if (tile >= n_tiles) return;
+  int item = blockIdx.x;
+  if (item >= n_items) return;
   STAMP_START;
 
-  if constexpr (M::kTC) {
-    // all of w1, once per block, swizzled as its tile rows are read
-    constexpr int kChunks = kF * (int)sizeof(Y) / 16;   // per (tap, o) row
-    const unsigned char* src = static_cast<const unsigned char*>(w1);
-    for (int k = tid; k < 9 * kF * kChunks; k += NT) {
-      const int row = k / kChunks, c = k % kChunks;
-      const int dst = kQ ? s8_chunk(row, c) : (c ^ (row & 7));
-      cp_async16(reinterpret_cast<unsigned char*>(w1s) +
-                     (row * kChunks + dst) * 16,
-                 src + (size_t)k * 16);
-    }
+  // all of w1, once per block (F <= 64)
+  if constexpr (M::kTC && !kMulti) load_w1<Y>(w1, w1s, 0, 0, kF, NT);
+  {
+    const int tile = item / groups;
+    stage_tile<T, kQ, O>(lum4, chroma, stage, shift, tile / tiles_img,
+                         (tile % tiles_img) / tiles_x * M::PH,
+                         tile % tiles_x * M::PW, batch, Hc, Wc);
   }
-  stage_tile<T, kQ, O>(lum4, chroma, stage, shift, tile / tiles_img,
-                       (tile % tiles_img) / tiles_x * M::PH,
-                       tile % tiles_x * M::PW, batch, Hc, Wc);
   cp_async_commit();
-  if constexpr (M::kTC0) {
-    // w0 transposed, [o][tap] with taps 27-31 zero: B fragments of conv0
-    __nv_bfloat16* w0t = reinterpret_cast<__nv_bfloat16*>(smem + SM::w0_off);
-    for (int k = tid; k < kF * 32; k += NT) {
-      const int o = k / 32, tap = k % 32;
-      w0t[o * kW0Stride + tap] =
-          tap < 27 ? w0[tap * kF + o] : __float2bfloat16(0.0f);
-    }
-  } else {
-    float* w0s = reinterpret_cast<float*>(smem + SM::w0_off);
-    for (int k = tid; k < 27 * kF; k += NT) w0s[k] = to_f32(w0[k]);
-  }
-  for (int k = tid; k < kF; k += NT) {
-    b0s[k] = b0[k];
-    b1s[k] = b1[k];
-    if constexpr (kQ) wss[k] = ws[k];
+  if constexpr (!kMulti) {
+    load_conv0<T, kQ, O>(w0, b0, smem, 0, kF, F);
+    load_conv1_bias<T, kQ, O>(b1, ws, smem, 0, F);
   }
   const float a0 = slopes[0], a1 = slopes[1];
   const float qy = kQ ? inv_y[0] : 0.0f;
   const float qo = inv_out != nullptr ? inv_out[0] : 0.0f;
 
+  // conv0 of y0 group gi (with its weights staged) into y0s
+  auto conv0 = [&](int pi0, int pj0) {
+    if constexpr (M::kTC0)
+      conv0_tc(ps, reinterpret_cast<const __nv_bfloat16*>(smem + SM::w0_off),
+               b0s, a0, qy, y0s, pi0, pj0, H, W);
+    else
+      conv0_f32<Y, M::PH, M::PW>(
+          ps, reinterpret_cast<const float*>(smem + SM::w0_off), b0s, a0, qy,
+          y0s, pi0, pj0, H, W);
+  };
+
   STAMP_SYNC(0);   // the prologue
-  for (; tile < n_tiles; tile += gridDim.x) {
+  for (; item < n_items; item += gridDim.x) {
+    const int tile = item / groups, go = item % groups;
     const int b = tile / tiles_img;
     const int pi0 = (tile % tiles_img) / tiles_x * M::PH;
     const int pj0 = tile % tiles_x * M::PW;
     // this tile's patch (first: also w1 and the weights) has landed, and
-    // the previous tile's conv1 is done with y0
+    // the previous item's conv1 is done with y0
     cp_async_wait_all();
     // w1 is read by wgmma through the async proxy
     fence_proxy_async();
@@ -787,82 +946,134 @@ __global__ void __launch_bounds__(Mode<T, kQ, O>::kThreads, 1)
     unstage<T, kQ, O>(stage, shift, ps);
     __syncthreads();
     STAMP(2);   // the unstaging
-    const int next = tile + gridDim.x;
-    if (next < n_tiles) {   // lands while this tile runs
-      stage_tile<T, kQ, O>(lum4, chroma, stage, shift, next / tiles_img,
-                           (next % tiles_img) / tiles_x * M::PH,
-                           next % tiles_x * M::PW, batch, Hc, Wc);
+    const int next = item + gridDim.x;
+    if (next < n_items) {   // lands while this item runs
+      const int nt = next / groups;
+      stage_tile<T, kQ, O>(lum4, chroma, stage, shift, nt / tiles_img,
+                           (nt % tiles_img) / tiles_x * M::PH,
+                           nt % tiles_x * M::PW, batch, Hc, Wc);
       cp_async_commit();
     }
     STAMP(3);   // issuing the next patch's copies
-    if constexpr (M::kTC0)
-      conv0_tc(ps, reinterpret_cast<const __nv_bfloat16*>(smem + SM::w0_off),
-               b0s, a0, qy, y0s, pi0, pj0, H, W);
-    else
-      conv0_f32<Y, M::PH, M::PW>(
-          ps, reinterpret_cast<const float*>(smem + SM::w0_off), b0s, a0, qy,
-          y0s, pi0, pj0, H, W);
-    __syncthreads();
-    STAMP(4);   // conv0
-
-    if constexpr (M::kTC) {
-      O* out_s = reinterpret_cast<O*>(smem + SM::out_off);
-      conv1_pool_wgmma<kQ>(y0s, w1s, wss, b1s, a1, qo, out_s);
+    if constexpr (!kMulti) {
+      conv0(pi0, pj0);
       __syncthreads();
-      STAMP(5);   // conv1 and the pool
-      constexpr int kChunks = kF * (int)sizeof(O) / 16;   // per pooled pixel
-      for (int k = tid; k < M::PH * M::PW * kChunks; k += NT) {
-        const int pp = k / kChunks, c = k % kChunks;
-        const int i = pi0 + pp / M::PW, j = pj0 + pp % M::PW;
-        if (i < Ho && j < Wo)
-          reinterpret_cast<uint4*>(out + (((size_t)b * Ho + i) * Wo + j) *
-                                             kF)[c] =
-              reinterpret_cast<const uint4*>(out_s + pp * kF)[c];
+      STAMP(4);   // conv0
+      if constexpr (M::kTC) {
+        O* out_s = reinterpret_cast<O*>(smem + SM::out_off);
+        Acc1<kQ> acc[2][32];
+        zero_acc<kQ>(acc);
+        conv1_wgmma<kQ>(acc, y0s, w1s);
+        conv1_epilogue<kQ>(acc, wss, b1s, a1, qo, out_s);
+        __syncthreads();
+        STAMP(5);   // conv1 and the pool
+        store_tile<T, kQ, O>(out, out_s, b, pi0, pj0, Ho, Wo, 0, F);
+        STAMP_SYNC(6);   // the store
+      } else {
+        AccF32<O> acc;
+        zero_acc_f32<O>(acc);
+        conv1_f32<O>(acc, y0s, w1s, static_cast<const float*>(w1), kF);
+        pool_store_f32<O>(acc, b1s, a1, qo, out, b, pi0, pj0, Ho, Wo, 0, F);
+        STAMP_SYNC(5);   // conv1, the pool and the store
       }
-      STAMP_SYNC(6);   // the store
     } else {
-      conv1_pool_f32(y0s, w1s, static_cast<const float*>(w1), b1s, a1, qo,
-                     out, b, pi0, pj0, Ho, Wo);
-      STAMP_SYNC(5);   // conv1, the pool and the store
+      load_conv1_bias<T, kQ, O>(b1, ws, smem, go, F);
+      if constexpr (M::kTC) {
+        Acc1<kQ> acc[2][32];
+        zero_acc<kQ>(acc);
+        for (int gi = 0; gi < groups; ++gi) {
+          load_w1<Y>(w1, w1s, go, gi, Fp, NT);
+          cp_async_commit();
+          load_conv0<T, kQ, O>(w0, b0, smem, gi, Fp, F);
+          __syncthreads();
+          conv0(pi0, pj0);
+          cp_async_wait_all();   // the slice of w1 (and the next patch)
+          fence_proxy_async();
+          __syncthreads();
+          conv1_wgmma<kQ>(acc, y0s, w1s);
+          __syncthreads();   // conv1 is done with y0s and w1s
+        }
+        O* out_s = reinterpret_cast<O*>(smem + SM::out_off);
+        conv1_epilogue<kQ>(acc, wss, b1s, a1, qo, out_s);
+        __syncthreads();
+        store_tile<T, kQ, O>(out, out_s, b, pi0, pj0, Ho, Wo, go, F);
+        __syncthreads();
+      } else {
+        AccF32<O> acc;
+        zero_acc_f32<O>(acc);
+        for (int gi = 0; gi < groups; ++gi) {
+          load_conv0<T, kQ, O>(w0, b0, smem, gi, Fp, F);
+          __syncthreads();
+          conv0(pi0, pj0);
+          __syncthreads();
+          conv1_f32<O>(acc, reinterpret_cast<const float*>(y0s),
+                       reinterpret_cast<float*>(w1s),
+                       static_cast<const float*>(w1) +
+                           (size_t)go * kF * Fp + gi * kF,
+                       Fp);
+          __syncthreads();   // conv1 is done with y0s and w1s
+        }
+        pool_store_f32<O>(acc, b1s, a1, qo, out, b, pi0, pj0, Ho, Wo, go,
+                          F);
+      }
     }
   }
   STAMP_END;
 }
 
-template <typename T, bool kQ, typename O>
-int launch(const void* lum4, const void* chroma, const void* w0,
-           const void* b0, const void* w1, const void* b1, const void* slopes,
-           const void* ws, const void* inv_y, const void* inv_out, void* out,
-           int batch, int Hc, int Wc, int F, void* stream) {
+template <typename T, bool kQ, typename O, bool kMulti>
+int launch_as(const void* lum4, const void* chroma, const void* w0,
+              const void* b0, const void* w1, const void* b1,
+              const void* slopes, const void* ws, const void* inv_y,
+              const void* inv_out, void* out, int batch, int Hc, int Wc,
+              int F, void* stream) {
   using M = Mode<T, kQ, O>;
   const int Ho = Hc - 1, Wo = Wc - 1;
-  if (F != kF) return (int)cudaErrorInvalidValue;
-  if (kQ && (ws == nullptr || inv_y == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (std::is_same<O, int8_t>::value && inv_out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
   const int smem = Smem<T, kQ, O>::total;
-  constexpr auto kernel = block0_2conv_kernel<T, kQ, O>;
+  constexpr auto kernel = block0_2conv_kernel<T, kQ, O, kMulti>;
   // persistent: as many blocks as the current card holds at once, at most
-  // one per tile
+  // one per work item
   int resident = 0;
-  cudaError_t e = resident_blocks<block0_2conv_kernel<T, kQ, O>>(
+  cudaError_t e = resident_blocks<block0_2conv_kernel<T, kQ, O, kMulti>>(
       M::kThreads, smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = (long long)batch * ((Ho + M::PH - 1) / M::PH) *
-                          ((Wo + M::PW - 1) / M::PW);
-  if (tiles > 0x7fffffffLL || (long long)batch * 8 * Hc * Wc > 0x7fffffffLL)
+  const long long items = (long long)batch * ((Ho + M::PH - 1) / M::PH) *
+                          ((Wo + M::PW - 1) / M::PW) *
+                          (kMulti ? (F + kF - 1) / kF : 1);
+  if (items > 0x7fffffffLL || (long long)batch * 8 * Hc * Wc > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < resident ? tiles : resident);
+  const int grid = (int)(items < resident ? items : resident);
   kernel<<<grid, M::kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(lum4), static_cast<const T*>(chroma),
       static_cast<const T*>(w0), static_cast<const float*>(b0), w1,
       static_cast<const float*>(b1), static_cast<const float*>(slopes),
       static_cast<const float*>(ws), static_cast<const float*>(inv_y),
       static_cast<const float*>(inv_out), static_cast<O*>(out), batch, Hc,
-      Wc);
+      Wc, F);
   return (int)cudaGetLastError();
+}
+
+// F real channels; the weights padded to Fp = 64 ceil(F / 64) (w0 [27,
+// Fp], w1 [9, Fp, Fp], ws [Fp]), the biases [F]
+template <typename T, bool kQ, typename O>
+int launch(const void* lum4, const void* chroma, const void* w0,
+           const void* b0, const void* w1, const void* b1, const void* slopes,
+           const void* ws, const void* inv_y, const void* inv_out, void* out,
+           int batch, int Hc, int Wc, int F, void* stream) {
+  const int Ho = Hc - 1, Wo = Wc - 1;
+  if (F < 1) return (int)cudaErrorInvalidValue;
+  if (kQ && (ws == nullptr || inv_y == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (std::is_same<O, int8_t>::value && inv_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaSuccess;
+  return F <= kF
+             ? launch_as<T, kQ, O, false>(lum4, chroma, w0, b0, w1, b1,
+                                          slopes, ws, inv_y, inv_out, out,
+                                          batch, Hc, Wc, F, stream)
+             : launch_as<T, kQ, O, true>(lum4, chroma, w0, b0, w1, b1,
+                                         slopes, ws, inv_y, inv_out, out,
+                                         batch, Hc, Wc, F, stream);
 }
 
 }  // namespace

@@ -36,7 +36,12 @@
 // kWholeMax boxes (within the 48 KB default), else only the boxes of its
 // own words, about N/8, which is all that pass (d) reads. Where that share
 // passes 48 KB the launcher opts in to the card's 227 KB once per device,
-// which bounds N at frcnn_nms_max_boxes() (87552 boxes). Passes (b) and R
+// which holds shares of up to frcnn_nms_max_boxes() (87552 boxes, the
+// largest staged image). Past that (the `direct` flag the host sets,
+// ops/nms_kernel.py::plan) no box is staged: pass (d) reads its share
+// straight from device memory and computes the +1-pixel areas as staging
+// does, and shared memory holds the alive bitset (one bit per box, up to
+// ~1.8 million boxes) and the chunk. Passes (b) and R
 // read only the chunk's 64 members, which one warp copies into a small
 // buffer as it lists them: from the staged image, or from device memory
 // where the block holds only its share. The non-finite records span the
@@ -162,6 +167,7 @@ struct Image {
   uint64_t* chunk_kept;   // its picks, bits over cidx
   int npad, n_words, max_out, rank;
   bool whole;             // every block stages the whole image
+  bool direct;            // no block stages boxes: (d) reads gbox
   float thr;
   uint8_t* keep;          // this image's outputs (written by block 0)
   int32_t* slots;
@@ -233,8 +239,15 @@ __device__ __forceinline__ void walk(const Image& im,
         const bool was = j >= pos && ((va[j >> 5] >> (j & 31)) & 1u);
         bool s = false;
         if (was) {
-          const float4 q = im.box[im.staged(j)];
-          const float qa = im.area[im.staged(j)];
+          float4 q;
+          float qa;
+          if (im.direct) {
+            q = im.load(j);
+            qa = area_plus_one(q);
+          } else {
+            q = im.box[im.staged(j)];
+            qa = im.area[im.staged(j)];
+          }
           uint64_t m = kept;
           for (int r = 0; r < sub; ++r) m &= m - 1;
           while (m != 0 && !s) {
@@ -391,7 +404,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     nms_keep_kernel(const float* __restrict__ boxes,
                     const uint8_t* __restrict__ valid,
                     uint8_t* __restrict__ keep, int32_t* __restrict__ slots,
-                    int n, int staged, float thr, int max_out) {
+                    int n, int staged, float thr, int max_out, bool direct) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float4 cbox[kChunk];
   __shared__ float carea[kChunk];
@@ -433,7 +446,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
           atomicMax(bad + 4 + k, j);
         }
       }
-      if (whole || (j >> 5) % kCluster == rank) {
+      if (!direct && (whole || (j >> 5) % kCluster == rank)) {
         const float4 q = make_float4(c[0], c[1], c[2], c[3]);
         const int s = whole ? j : ((j >> 5) / kCluster) * 32 + (j & 31);
         sbox[s] = q;
@@ -454,8 +467,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 
   const Image im{sbox,  sarea,       bx,   alive,   bad,     cols,
                  cidx,  cbox,        carea, chunk,  &chunk_kept,
-                 npad,  n_words,     max_out, rank, whole,   thr,
-                 bk,    bs};
+                 npad,  n_words,     max_out, rank, whole,   direct,
+                 thr,   bk,          bs};
   const bool finite = bad[0] > bad[4] && bad[1] > bad[5] &&
                       bad[2] > bad[6] && bad[3] > bad[7];
   if (finite)
@@ -464,12 +477,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     walk<false>(im, cluster);
 }
 
-// boxes staged per block, and the dynamic shared memory that takes
-void staging(int n, int* staged, size_t* smem) {
+// boxes staged per block (none when direct), and the dynamic shared
+// memory that takes
+void staging(int n, bool direct, int* staged, size_t* smem) {
   const int npad = (n + 31) / 32 * 32;
   const int n_words = npad / 32;
-  *staged = npad <= kWholeMax ? npad
-                             : (n_words + kCluster - 1) / kCluster * 32;
+  *staged = direct              ? 0
+            : npad <= kWholeMax ? npad
+                                : (n_words + kCluster - 1) / kCluster * 32;
   *smem = (size_t)*staged * (sizeof(float4) + sizeof(float)) +
           (size_t)n_words * sizeof(uint32_t) + 8 * sizeof(int);
 }
@@ -499,14 +514,15 @@ size_t dynamic_limit() {
 
 }  // namespace
 
-// The largest N a launch takes on the current device (0 on an error).
+// The largest N a launch stages on the current device (0 on an error);
+// past it the host sets `direct`.
 extern "C" int frcnn_nms_max_boxes() {
   const size_t limit = dynamic_limit();
   int n = 0;
   for (int step = 1 << 20; step >= 32; step >>= 1) {
     int staged;
     size_t smem;
-    staging(n + step, &staged, &smem);
+    staging(n + step, false, &staged, &smem);
     if (smem <= limit) n += step;
   }
   return n;
@@ -514,11 +530,15 @@ extern "C" int frcnn_nms_max_boxes() {
 
 extern "C" int frcnn_nms_keep(const void* boxes, const void* valid, void* keep,
                               void* slots, int batch, int n,
-                              float iou_threshold, int max_out, void* stream) {
+                              float iou_threshold, int max_out, int direct,
+                              void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
+  // box offsets 4 j fit in 32 bits
+  if (n < 0 || (long long)n * 4 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   int staged;
   size_t smem;
-  staging(n, &staged, &smem);
+  staging(n, direct != 0, &staged, &smem);
   if (smem > 48 * 1024) {
     const size_t limit = dynamic_limit();
     if (limit == 0) return (int)cudaGetLastError();
@@ -528,7 +548,7 @@ extern "C" int frcnn_nms_keep(const void* boxes, const void* valid, void* keep,
                     (cudaStream_t)stream>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
       static_cast<uint8_t*>(keep), static_cast<int32_t*>(slots), n, staged,
-      iou_threshold, max_out);
+      iou_threshold, max_out, direct != 0);
   return (int)cudaGetLastError();
 }
 

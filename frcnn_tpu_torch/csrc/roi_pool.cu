@@ -26,9 +26,17 @@
 // registers a thread keep several blocks on an SM, the parallelism the
 // L2 reads' latency needs. The bins' maxima then go out as 16-byte
 // stores. Invalid slots read nothing and write zeros. Bin edges are clamped
-// to the map, so a malformed rect never reads out of bounds. The wrapper
-// takes C a multiple of the vector, kh and kw at most 8, and a 16-byte
-// aligned map.
+// to the map, so a malformed rect never reads out of bounds. These vector
+// instances take C a multiple of the vector, kw at most 8, and a 16-byte
+// aligned map: every shape of the published configurations.
+//
+// Every other shape (any kh, kw and C, as the Pallas kernel's full-C block
+// takes) goes to roi_pool_any_kernel, which the host picks by shape
+// (`route`, ops/roi_pool_kernel.py::forward_plan) so that the vector
+// instances' code is what the serving and training paths run: one thread
+// per (row bin, chunk of up to 8 column bins, channel), the same walk over
+// the chunk's columns with scalar loads (neighbouring threads on
+// neighbouring channels) and at most 8 running maxima in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,19 +142,111 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename V>
+// one scalar channel: its type T and the max of two
+struct OneF32 {
+  using T = float;
+  static __device__ __forceinline__ T ninf() { return -INFINITY; }
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ T max(T a, T b) { return fmaxf(a, b); }
+};
+struct OneBF16 {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T ninf() {
+    return __ushort_as_bfloat16(0xff80);
+  }
+  static __device__ __forceinline__ T zero() {
+    return __ushort_as_bfloat16(0);
+  }
+  static __device__ __forceinline__ T max(T a, T b) { return __hmax(a, b); }
+};
+
+constexpr int kChunkBins = 8;   // column bins a thread of the any kernel holds
+
+// Any kh, kw and C: a thread per (row bin, chunk of column bins, channel).
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 2)
+    roi_pool_any_kernel(const typename S::T* __restrict__ fm,
+                        const int32_t* __restrict__ rects,
+                        const uint8_t* __restrict__ valid,
+                        typename S::T* __restrict__ out, int n_rois, int H,
+                        int W, int C, int kh, int kw) {
+  using T = typename S::T;
+  const size_t roi = blockIdx.x;   // image * n_rois + slot
+  const int b = static_cast<int>(roi / n_rois);
+  T* o = out + roi * kh * kw * C;
+  if (!valid[roi]) {
+    for (int k = threadIdx.x; k < kh * kw * C; k += blockDim.x)
+      o[k] = S::zero();
+    return;
+  }
+  const int32_t* r = rects + roi * 4;
+  const int x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3];
+  const int w = x1 - x0, h = y1 - y0;
+  const int chunks = (kw + kChunkBins - 1) / kChunkBins;
+  const T* f = fm + (size_t)b * H * W * C;
+  for (int item = threadIdx.x; item < kh * chunks * C; item += blockDim.x) {
+    const int c = item % C, rest = item / C;
+    const int ch = rest % chunks, rb = rest / chunks;
+    const int cbase = ch * kChunkBins;
+    const int nb = kw - cbase < kChunkBins ? kw - cbase : kChunkBins;
+    const int ylo = clampi(y0 + (rb * h) / kh, 0, H);
+    const int yhi = clampi(y0 + ((rb + 1) * h + kh - 1) / kh, 0, H);
+    // the chunk's columns: from its first bin's first to its last bin's
+    // last (the bins are monotone)
+    const int xs = clampi(x0 + (cbase * w) / kw, 0, W);
+    const int xe = clampi(x0 + ((cbase + nb) * w + kw - 1) / kw, 0, W);
+    T m[kChunkBins];
+#pragma unroll
+    for (int k = 0; k < kChunkBins; ++k) m[k] = S::ninf();
+    for (int x = xs; x < xe; ++x) {
+      T cm = S::ninf();
+      const T* col = f + (size_t)x * C + c;
+#pragma unroll 4
+      for (int y = ylo; y < yhi; ++y)
+        cm = S::max(cm, col[(size_t)y * W * C]);
+      // the column bins holding x, as in roi_pool_kernel
+      const int u = x - x0;
+      const int cb0 = u * kw / w, cb1 = ((u + 1) * kw + w - 1) / w - 1;
+#pragma unroll
+      for (int k = 0; k < kChunkBins; ++k)
+        if (k < nb && cb0 <= cbase + k && cbase + k <= cb1)
+          m[k] = S::max(m[k], cm);
+    }
+    T* dst = o + ((size_t)rb * kw + cbase) * C + c;
+#pragma unroll
+    for (int k = 0; k < kChunkBins; ++k)
+      if (k < nb) dst[(size_t)k * C] = m[k];
+  }
+}
+
+// route 0: the vector instances (C a multiple of the 16-byte vector, kw at
+// most 8, a 16-byte aligned map); route 1: roi_pool_any_kernel
+template <typename V, typename S>
 int launch(const void* fm, const void* rects, const void* valid, void* out,
            int batch, int n_rois, int H, int W, int C, int kh, int kw,
-           int elem_bytes, void* stream) {
+           int route, int elem_bytes, void* stream) {
   if (batch <= 0 || n_rois <= 0) return (int)cudaSuccess;
+  if (C < 1 || kh < 1 || kw < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    const int items = kh * ((kw + kChunkBins - 1) / kChunkBins) * C;
+    int threads = ((items + 31) / 32) * 32;
+    if (threads > kThreads) threads = kThreads;
+    roi_pool_any_kernel<S><<<batch * n_rois, threads, 0, s>>>(
+        static_cast<const typename S::T*>(fm),
+        static_cast<const int32_t*>(rects),
+        static_cast<const uint8_t*>(valid),
+        static_cast<typename S::T*>(out), n_rois, H, W, C, kh, kw);
+    return (int)cudaGetLastError();
+  }
   const int per_vec = 16 / elem_bytes;
-  if (C % per_vec != 0 || kh < 1 || kw < 1 || kh > 8 || kw > 8)
+  if (route != 0 || C % per_vec != 0 || kw > 8)
     return (int)cudaErrorInvalidValue;
   const int nvec = C / per_vec;
   int threads = ((kh * nvec + 31) / 32) * 32;
   if (threads > kThreads) threads = kThreads;
   auto* kernel = kw <= 6 ? roi_pool_kernel<V, 6> : roi_pool_kernel<V, 8>;
-  kernel<<<batch * n_rois, threads, 0, (cudaStream_t)stream>>>(
+  kernel<<<batch * n_rois, threads, 0, s>>>(
       static_cast<const uint4*>(fm), static_cast<const int32_t*>(rects),
       static_cast<const uint8_t*>(valid), static_cast<uint4*>(out), n_rois,
       H, W, nvec, kh, kw);
@@ -158,15 +258,15 @@ int launch(const void* fm, const void* rects, const void* valid, void* out,
 extern "C" int frcnn_roi_pool_f32(const void* fm, const void* rects,
                                   const void* valid, void* out, int batch,
                                   int n_rois, int H, int W, int C, int kh,
-                                  int kw, void* stream) {
-  return launch<VecF32>(fm, rects, valid, out, batch, n_rois, H, W, C, kh,
-                        kw, 4, stream);
+                                  int kw, int route, void* stream) {
+  return launch<VecF32, OneF32>(fm, rects, valid, out, batch, n_rois, H, W,
+                                C, kh, kw, route, 4, stream);
 }
 
 extern "C" int frcnn_roi_pool_bf16(const void* fm, const void* rects,
                                    const void* valid, void* out, int batch,
                                    int n_rois, int H, int W, int C, int kh,
-                                   int kw, void* stream) {
-  return launch<VecBF16>(fm, rects, valid, out, batch, n_rois, H, W, C, kh,
-                         kw, 2, stream);
+                                   int kw, int route, void* stream) {
+  return launch<VecBF16, OneBF16>(fm, rects, valid, out, batch, n_rois, H,
+                                  W, C, kh, kw, route, 2, stream);
 }

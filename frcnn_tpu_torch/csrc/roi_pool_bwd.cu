@@ -44,6 +44,22 @@
 //     table per block), which rounds as the division does.
 // The sums run in the order of the Pallas kernel (rois, then column bins;
 // dcol over row bins), so the float32 result is that kernel's to the bit.
+// These instances take C a multiple of 16, kh and kw at most 8, W under
+// 32768 and row bins of at most 32 rows: every shape of the published
+// configurations.
+//
+// Every other shape goes to the any-shape pair below, which the host picks
+// by shape (`route`, ops/roi_pool_kernel.py::backward_plan), so that the
+// instances above are what training runs. The same two passes and sums in
+// the same order, with what limited the shapes taken out:
+//  * row-tie masks of `words` = ceil(rows / 32) 32-bit words per (roi, row
+//    bin, column bin, channel), word-major over the channels: bin rows of
+//    any count (pass 1 takes the bin's max first, then writes each word);
+//  * column-bin edges as two int32s and row-bin offsets as one int32 each,
+//    staged in shared memory per roi, sized by kh and kw, in rounds of at
+//    most `round` rois (as many as the shared memory takes): any W, kh, kw
+//    and any number of rois;
+//  * one thread per (cell, channel) with scalar loads: any C.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -365,19 +381,247 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// ties: scratch [batch, n_rois, kh, kw, C] of 32-bit masks (bins of at
-// most 32 rows); kh, kw at most 8; C a multiple of 16, every pointer
-// 16-byte aligned, W < 32768.
+// -- any shape ---------------------------------------------------------------
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// row y's max over columns [xlo, xhi) of channel c, and its tie count
+template <typename T>
+__device__ __forceinline__ float row_max(const T* frow, int xlo, int xhi,
+                                         int C, int* count) {
+  float m = -INFINITY;
+  int n = 0;
+  for (int x = xlo; x < xhi; ++x) {
+    const float v = load1(frow + (size_t)x * C);
+    if (v > m) {
+      m = v;
+      n = 1;
+    } else if (v == m) {
+      ++n;
+    }
+  }
+  *count = n;
+  return m;
+}
+
+// Pass 1, any shape: the tie masks of one row bin (blockIdx.x) of one roi
+// slot; a thread per (column bin, channel). ties [.., kh, kw, words, C].
+template <typename T>
+__global__ void roi_pool_bwd_ties_any_kernel(
+    const T* __restrict__ fm, const int32_t* __restrict__ rects,
+    const uint8_t* __restrict__ valid, uint32_t* __restrict__ ties,
+    int n_rois, int H, int W, int C, int kh, int kw, int words) {
+  const int rb = blockIdx.x, d = blockIdx.y, b = blockIdx.z;
+  const size_t roi = (size_t)b * n_rois + d;
+  if (!valid[roi]) return;
+  const int32_t* r = rects + roi * 4;
+  const int x0 = r[0], y0 = r[1], w = r[2] - r[0], h = r[3] - r[1];
+  const int ylo = bin_lo(y0, h, rb, kh, H);
+  int yhi = bin_hi(y0, h, rb, kh, H);
+  if (yhi - ylo > 32 * words) yhi = ylo + 32 * words;  // malformed rects
+  const T* f = fm + (size_t)b * H * W * C;
+  for (int item = threadIdx.x; item < kw * C; item += blockDim.x) {
+    const int cb = item / C, c = item % C;
+    const int xlo = bin_lo(x0, w, cb, kw, W), xhi = bin_hi(x0, w, cb, kw, W);
+    const T* col = f + c;
+    int n;
+    float m = -INFINITY;
+    for (int yy = ylo; yy < yhi; ++yy)
+      m = fmaxf(m, row_max(col + (size_t)yy * W * C, xlo, xhi, C, &n));
+    uint32_t* dst = ties + (((roi * kh + rb) * kw + cb) * words) * C + c;
+    for (int wd = 0; wd < words; ++wd) {
+      uint32_t mask = 0;
+      for (int k = 0; k < 32; ++k) {
+        const int yy = ylo + 32 * wd + k;
+        if (yy < yhi &&
+            row_max(col + (size_t)yy * W * C, xlo, xhi, C, &n) == m)
+          mask |= 1u << k;
+      }
+      dst[(size_t)wd * C] = mask;
+    }
+  }
+}
+
+// What a block of the any-shape pass 2 keeps of a valid roi holding its
+// row y, as int32s: x0, x1, the slot, then per row bin rb the offset
+// y - ylo(rb) (-1 where rb does not hold y), then per column bin its xlo
+// and xhi.
+__host__ __device__ constexpr int roi_ints(int kh, int kw) {
+  return 3 + kh + 2 * kw;
+}
+
+// Pass 2, any shape: a thread per (cell x, channel c) of row y; the valid
+// rois holding row y, in slot order, staged `round` candidates at a time.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    roi_pool_bwd_any_kernel(const T* __restrict__ fm,
+                            const int32_t* __restrict__ rects,
+                            const uint8_t* __restrict__ valid,
+                            const T* __restrict__ g,
+                            const uint32_t* __restrict__ ties,
+                            T* __restrict__ dfm, int n_rois, int H, int W,
+                            int C, int kh, int kw, int words, int round) {
+  extern __shared__ int s_any[];   // [round][roi_ints(kh, kw)]
+  __shared__ int s_warp[32];
+  __shared__ float s_rcp[33];
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int R = roi_ints(kh, kw);
+  for (int k = tid; k <= 32; k += nt)
+    s_rcp[k] = k ? __frcp_rn(static_cast<float>(k)) : 0.0f;
+  const size_t item = (size_t)blockIdx.x * nt + tid;
+  const bool live = item < (size_t)W * C;
+  const int x = live ? (int)(item / C) : 0, c = live ? (int)(item % C) : 0;
+  const T* frow = fm + ((size_t)b * H + y) * W * C + c;
+  const float fx = live ? load1(frow + (size_t)x * C) : 0.0f;
+  float acc = 0.0f;
+  for (int d0 = 0; d0 < n_rois; d0 += round) {
+    // stage this round's valid rois holding row y, in slot order
+    __syncthreads();   // the last round's entries are read
+    const int d = d0 + tid;
+    int x0 = 0, y0 = 0, x1 = 0, y1 = 0;
+    bool keep = false;
+    if (tid < round && d < n_rois && valid[(size_t)b * n_rois + d]) {
+      const int32_t* p = rects + ((size_t)b * n_rois + d) * 4;
+      x0 = p[0];
+      y0 = p[1];
+      x1 = p[2];
+      y1 = p[3];
+      keep = y >= y0 && y < y1;
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_warp[warp] = __popc(ball);
+    __syncthreads();
+    int at = 0, n = 0;
+    for (int k = 0; k < nt / 32; ++k) {
+      at += k < warp ? s_warp[k] : 0;
+      n += s_warp[k];
+    }
+    if (keep) {
+      int* e = s_any + (at + __popc(ball & ((1u << lane) - 1u))) * R;
+      e[0] = x0;
+      e[1] = x1;
+      e[2] = d;
+      for (int rb = 0; rb < kh; ++rb) {
+        const int lo = bin_lo(y0, y1 - y0, rb, kh, H);
+        e[3 + rb] =
+            y >= lo && y < bin_hi(y0, y1 - y0, rb, kh, H) ? y - lo : -1;
+      }
+      for (int cb = 0; cb < kw; ++cb) {
+        e[3 + kh + 2 * cb] = bin_lo(x0, x1 - x0, cb, kw, W);
+        e[4 + kh + 2 * cb] = bin_hi(x0, x1 - x0, cb, kw, W);
+      }
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = 0; i < n; ++i) {
+      const int* e = s_any + i * R;
+      if (x < e[0] || x >= e[1]) continue;
+      const size_t roi = (size_t)b * n_rois + e[2];
+      for (int cb = 0; cb < kw; ++cb) {
+        const int xlo = e[3 + kh + 2 * cb], xhi = e[4 + kh + 2 * cb];
+        if (x < xlo || x >= xhi) continue;
+        int cnt;
+        const float cm = row_max(frow, xlo, xhi, C, &cnt);
+        if (fx != cm) continue;  // would add an exact zero only
+        // row stage: dcol[y, cb] over the row bins that hold y, in rb order
+        float dcol = 0.0f;
+        for (int rb = 0; rb < kh; ++rb) {
+          const int sh = e[3 + rb];
+          if (sh < 0 || sh >= 32 * words) continue;
+          const size_t bin = (roi * kh + rb) * kw + cb;
+          const uint32_t* mk = ties + bin * words * C + c;
+          if (!((mk[(size_t)(sh >> 5) * C] >> (sh & 31)) & 1u)) continue;
+          int ties_n = 0;
+          for (int wd = 0; wd < words; ++wd)
+            ties_n += __popc(mk[(size_t)wd * C]);
+          dcol += div_count(load1(g + bin * C + c), ties_n, s_rcp);
+        }
+        // column stage: x's share of dcol among the tied columns
+        acc += div_count(dcol, cnt, s_rcp);
+      }
+    }
+  }
+  if (live) store1(dfm + ((size_t)b * H + y) * W * C + (size_t)x * C + c, acc);
+}
+
+// route 0: the instances above (ties [batch, n_rois, kh, kw, C] of 32-bit
+// masks; kh, kw at most 8; C a multiple of 16, every pointer 16-byte
+// aligned, W < 32768, bins of at most 32 rows). route 1: the any-shape
+// pair (ties [batch, n_rois, kh, kw, words, C]).
+template <typename T>
+int launch_any(const void* fm, const void* rects, const void* valid,
+               const void* g, void* ties, void* dfm, int batch, int n_rois,
+               int H, int W, int C, int kh, int kw, int words,
+               cudaStream_t s) {
+  constexpr int kT = 256;
+  const int max_rows = H < (H + kh - 1) / kh + 1 ? H : (H + kh - 1) / kh + 1;
+  if (words < 1 || 32 * words < max_rows) return (int)cudaErrorInvalidValue;
+  if (n_rois > 0) {
+    dim3 grid1(kh, n_rois, batch);
+    const int items = kw * C;
+    roi_pool_bwd_ties_any_kernel<T>
+        <<<grid1, items < kT ? (items + 31) / 32 * 32 : kT, 0, s>>>(
+            static_cast<const T*>(fm), static_cast<const int32_t*>(rects),
+            static_cast<const uint8_t*>(valid), static_cast<uint32_t*>(ties),
+            n_rois, H, W, C, kh, kw, words);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  // rois staged per round: a multiple of 32, at most a thread each, as
+  // many as the opt-in shared memory takes
+  const size_t per_roi = (size_t)roi_ints(kh, kw) * sizeof(int);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t limit = (size_t)optin - 1024;   // the static arrays
+  int round = (int)(limit / per_roi) / 32 * 32;
+  if (round > kT) round = kT;
+  if (round < 32) return (int)cudaErrorInvalidValue;
+  const int n_round = n_rois < round ? (n_rois + 31) / 32 * 32 : round;
+  const size_t smem = (size_t)(n_round > 0 ? n_round : 32) * per_roi;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(roi_pool_bwd_any_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long cells = (long long)W * C;
+  dim3 grid2((unsigned)((cells + kT - 1) / kT), H, batch);
+  roi_pool_bwd_any_kernel<T><<<grid2, kT, smem, s>>>(
+      static_cast<const T*>(fm), static_cast<const int32_t*>(rects),
+      static_cast<const uint8_t*>(valid), static_cast<const T*>(g),
+      static_cast<const uint32_t*>(ties), static_cast<T*>(dfm), n_rois, H, W,
+      C, kh, kw, words, n_round > 0 ? n_round : 32);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* fm, const void* rects, const void* valid,
            const void* g, void* ties, void* dfm, int batch, int n_rois,
-           int H, int W, int C, int kh, int kw, void* stream) {
+           int H, int W, int C, int kh, int kw, int route, int words,
+           void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0 || C <= 0) return (int)cudaSuccess;
-  const int max_rows = H < (H + kh - 1) / kh + 1 ? H : (H + kh - 1) / kh + 1;
-  if (C % 16 != 0 || kh <= 0 || kw <= 0 || kh > kMaxBins ||
-      kw > kMaxBins || W >= 32768 || max_rows > 32)
-    return (int)cudaErrorInvalidValue;
+  if (kh <= 0 || kw <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return launch_any<T>(fm, rects, valid, g, ties, dfm, batch, n_rois, H,
+                         W, C, kh, kw, words, s);
+  const int max_rows = H < (H + kh - 1) / kh + 1 ? H : (H + kh - 1) / kh + 1;
+  if (route != 0 || C % 16 != 0 || kh > kMaxBins || kw > kMaxBins ||
+      W >= 32768 || max_rows > 32)
+    return (int)cudaErrorInvalidValue;
   constexpr int V = Vec<T>::V, S = Vec<T>::S;
   const int ng = C / V;
   auto threads_for = [](int items) {
@@ -420,16 +664,18 @@ extern "C" int frcnn_roi_pool_bwd_f32(const void* fm, const void* rects,
                                       const void* valid, const void* g,
                                       void* ties, void* dfm, int batch,
                                       int n_rois, int H, int W, int C, int kh,
-                                      int kw, void* stream) {
+                                      int kw, int route, int words,
+                                      void* stream) {
   return launch<float>(fm, rects, valid, g, ties, dfm, batch, n_rois, H, W,
-                       C, kh, kw, stream);
+                       C, kh, kw, route, words, stream);
 }
 
 extern "C" int frcnn_roi_pool_bwd_bf16(const void* fm, const void* rects,
                                        const void* valid, const void* g,
                                        void* ties, void* dfm, int batch,
                                        int n_rois, int H, int W, int C,
-                                       int kh, int kw, void* stream) {
+                                       int kh, int kw, int route, int words,
+                                       void* stream) {
   return launch<__nv_bfloat16>(fm, rects, valid, g, ties, dfm, batch, n_rois,
-                               H, W, C, kh, kw, stream);
+                               H, W, C, kh, kw, route, words, stream);
 }

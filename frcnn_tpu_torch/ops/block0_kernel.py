@@ -22,9 +22,11 @@ so its launches are counted apart.
 
 The kernel computes bf16 planes on tensor cores (``wgmma``: one row of
 an implicit GEMM per output pixel, its 48 patch values against the four
-pooling phases' weights, which it re-tiles from ``w27`` itself) and takes
-F = 64 there; float32 planes stay on CUDA cores in float32 for any F
-that is a multiple of 16.
+pooling phases' weights, which it re-tiles from ``w27`` itself) in slices
+of 64 filters; float32 planes stay on CUDA cores in float32, 16 filters
+at a time. Any F: :func:`block0_weights` pads ``w27`` with zero columns
+to the kernel's granule (:func:`plan`) once per weight set, the bias keeps
+the F real filters, and the kernel stores only those.
 
 On a CPU tensor :func:`fused_block0` runs the plain version
 (:func:`block0_plain`: unpack the planes, one float32 convolution, bias,
@@ -107,28 +109,59 @@ def unpack_s2d(lum4, chroma):
     return torch.cat([lum, ch], dim=1)
 
 
+def plan(f: int, dtype) -> int:
+    """The filters the kernel computes for F real ones in planes of
+    ``dtype``: F rounded up to a multiple of 64 for bfloat16 (the
+    ``wgmma`` slices) or of 16 for float32 (the CUDA cores' groups).
+    Raises for F < 1 or another dtype: the Pallas kernel takes any F."""
+    if f < 1:
+        raise ValueError(f"block0 kernel: needs F >= 1, got {f}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block0 kernel: float32 or bfloat16 planes, got "
+                        f"{dtype}")
+    g = 64 if dtype == torch.bfloat16 else 16
+    return -(-f // g) * g
+
+
+def pad_columns(w, n: int):
+    """``w`` [..., F] with zero columns appended up to ``n`` (``w`` itself
+    when it has ``n``)."""
+    f = w.shape[-1]
+    if f == n:
+        return w
+    if f > n:
+        raise ValueError(f"pad_columns: {f} columns, more than {n}")
+    return F.pad(w, (0, n - f)).contiguous()
+
+
 def block0_weights(w_oihw, bias, dtype):
     """The kernel's weight layout: OIHW [F, 3, 3, 3] -> [27, F] in
     ``dtype`` (tap (ky*3+kx)*3+c, the HWIO kernel flattened), and the bias
-    as float32 [F]."""
+    as float32 [F]. On a CUDA device, whose kernel reads them, ``w27``
+    gets zero columns up to :func:`plan`'s count here, once per weight
+    set; the bias keeps F, the width of the output."""
     f = w_oihw.shape[0]
     if tuple(w_oihw.shape[1:]) != (3, 3, 3):
         raise ValueError(f"block0 takes a 3x3 conv over 3 channels, got "
                          f"{tuple(w_oihw.shape)}")
-    w27 = w_oihw.permute(2, 3, 1, 0).reshape(27, f)
-    return w27.to(dtype).contiguous(), bias.float().contiguous()
+    w27 = w_oihw.permute(2, 3, 1, 0).reshape(27, f).to(dtype).contiguous()
+    if w27.is_cuda:
+        w27 = pad_columns(w27, plan(f, dtype))
+    return w27, bias.float().contiguous()
 
 
 def block0_plain(lum4, chroma, w27, bias, slope, inv_out=None):
     """Plain version of the kernel: same inputs, same output. Computes in
     float32 from the inputs as given (the compute dtype), rounds once to
-    that dtype, or quantizes to int8 under ``inv_out``."""
-    f = w27.shape[1]
+    that dtype, or quantizes to int8 under ``inv_out``. ``w27`` may be
+    padded (:func:`block0_weights`): the padded filters are computed with a
+    zero bias, as the kernel computes them, and dropped."""
+    f, fp = bias.shape[0], w27.shape[1]
     p = unpack_s2d(lum4, chroma).float()
-    w = w27.float().reshape(3, 3, 3, f).permute(3, 2, 0, 1)
-    y = F.conv2d(p, w, bias.float())
+    w = w27.float().reshape(3, 3, 3, fp).permute(3, 2, 0, 1)
+    y = F.conv2d(p, w, pad_columns(bias.float(), fp))
     y = torch.where(y >= 0, y, slope.float() * y)
-    y = F.max_pool2d(y, 2, 2, ceil_mode=True).permute(0, 2, 3, 1)
+    y = F.max_pool2d(y, 2, 2, ceil_mode=True).permute(0, 2, 3, 1)[..., :f]
     if inv_out is not None:
         return quantize_out(y, inv_out).contiguous()
     return y.to(lum4.dtype).contiguous()
@@ -147,23 +180,22 @@ def block0_nhwc(x, w_oihw, b, slope):
 
 def fused_block0(lum4, chroma, w27, bias, slope, inv_out=None):
     """lum4 [B, 4, Hc, Wc] and chroma [B, Hc, 8, Wc] in the compute dtype
-    (float32 or bfloat16), w27 [27, F] in the same dtype (see
-    :func:`block0_weights`), bias [F] float32, slope [1] float32, and
-    optionally ``inv_out`` [1] float32. Returns NHWC [B, Hc-1, Wc-1, F] in
-    the compute dtype, or int8 under ``inv_out``."""
+    (float32 or bfloat16), w27 [27, F] in the same dtype, or padded (see
+    :func:`block0_weights`; padded here where it is not), bias [F]
+    float32, slope [1] float32, and optionally ``inv_out`` [1] float32.
+    Returns NHWC [B, Hc-1, Wc-1, F] in the compute dtype, or int8 under
+    ``inv_out``."""
     if lum4.device.type == "cpu":
         return block0_plain(lum4, chroma, w27, bias, slope, inv_out)
     B, _, Hc, Wc = lum4.shape
-    f = w27.shape[1]
+    f = bias.shape[0]
     dt = lum4.dtype
+    w27 = pad_columns(w27, plan(f, dt))
     check_cuda("lum4", lum4, dt, (B, 4, Hc, Wc))
     check_cuda("chroma", chroma, dt, (B, Hc, 8, Wc))
-    check_cuda("w27", w27, dt, (27, f))
+    check_cuda("w27", w27, dt, (27, plan(f, dt)))
     check_cuda("bias", bias, torch.float32, (f,))
     check_cuda("slope", slope, torch.float32, (1,))
-    if f % 16 or (dt == torch.bfloat16 and f != 64):
-        raise ValueError(f"block0 kernel takes F = 64 for bfloat16 planes "
-                         f"and F % 16 == 0 for float32; got F={f} in {dt}")
     shape = (B, Hc - 1, Wc - 1, f)
     if inv_out is None:
         out = torch.empty(shape, dtype=dt, device=lum4.device)

@@ -22,8 +22,8 @@ The public entries :func:`nms`, :func:`per_class_nms` and
 :func:`nms_indices_sorted` take the JAX package's arguments, unbatched or
 with a leading batch axis. They run the plain keep mask on CPU tensors and
 the CUDA kernel on CUDA tensors (``nms_kernel.nms_keep_slots``: up to
-``nms_kernel.MAX_BOXES``, 87552 boxes per image, and ``ValueError`` past
-that). :func:`plain_nms` is the batched plain path on any device, for the
+``nms_kernel.MAX_DIRECT``, 1842816 boxes per image, and ``ValueError``
+past that). :func:`plain_nms` is the batched plain path on any device, for the
 detector's reference path.
 """
 

@@ -448,16 +448,17 @@ def test_roi_pool_backward_division_rounds_as_ieee():
 
 
 def test_roi_pool_backward_tie_mask_bytes():
-    """The kernel's row-tie masks are 4 bytes per channel, a bit per row
-    of a row bin: bins of vgg_small's 29-row map hold up to 6 rows,
-    vgg_large's 63-row one 12, a 3-row map 2; beyond 32 rows a clear
-    error."""
+    """The kernel's row-tie masks hold a bit per row of a row bin: bins of
+    vgg_small's 29-row map hold up to 6 rows, vgg_large's 63-row one 12, a
+    3-row map 2, all in one 32-bit word per channel; past 32 rows the masks
+    take more words (and the any-shape kernels), with no error."""
     assert roi_pool_kernel.tie_mask_rows(29, 6) == 6
     assert roi_pool_kernel.tie_mask_rows(63, 6) == 12
     assert roi_pool_kernel.tie_mask_rows(3, 6) == 2
     assert roi_pool_kernel.tie_mask_rows(186, 6) == 32
-    with pytest.raises(ValueError, match="tie masks"):
-        roi_pool_kernel.tie_mask_rows(200, 6)
+    assert roi_pool_kernel.tie_mask_rows(200, 6) == 35
+    assert [roi_pool_kernel.tie_mask_words(h, 6)
+            for h in (29, 186, 187, 200, 400)] == [1, 1, 2, 2, 3]
 
 
 def test_roi_pool_grad_functions():
