@@ -69,9 +69,8 @@ Phases, each printing one flushed line with its seconds:
   detect   the serving Detector (vgg_small, duplo serving config, 450x800,
            batch 8): float32 through the kernels equals float32 through
            the plain versions; then bf16 serving batches with the launch
-           counts of every kernel read around them; the device time per
-           detect of NMS (both launches), the ROI pool and block0
-           (torch.profiler); the ROI pool bitwise on a detect's own inputs
+           counts of every kernel read around them; the ROI pool bitwise
+           on a detect's own inputs
            (a hook on its wrapper), with their valid count and mean size;
            NMS keep masks and slots bitwise on both calls of a detect
            (a hook on ``nms_kernel.nms_keep_slots``), with each call's
@@ -83,19 +82,20 @@ Phases, each printing one flushed line with its seconds:
            detect), and row 1 on both calls of a detect (N = 6000 and the
            per-class N = 300), bitwise, with each call's device ms
   profile  device time of the bf16 serving batch by kernel group
-           (torch.profiler), and the device's busy share: that device
-           time over the wall time of the same batches run without the
-           profiler
+           (torch.profiler, device activity only), and the device's busy
+           share: that device time over the wall time of the same batches
+           run without the profiler; the device time per detect of NMS
+           (both launches), the ROI pool and block0 from the same trace
   detect-large  the serving Detector of vgg_large (imagenet serving
            config, 201 classes, seeded weights) at 480x1000 and at the
            portrait bucket 1000x480, batch 8: float32 through the kernels
            equals float32 through the plain versions in both buckets; then
            bf16 batches from packed device planes with ms/batch, img/s and
            the launch counts of every kernel read around them (the 2-conv
-           block0 kernel's above 0 in both buckets), the NMS kernel's
-           device time per detect and its check on both calls of a detect,
-           each bucket
-  profile-large  the profile phase's breakdown for a vgg_large bf16 batch
+           block0 kernel's above 0 in both buckets), NMS checked on both
+           calls of a detect, each bucket
+  profile-large  the profile phase's breakdown for a vgg_large bf16 batch,
+           with the NMS kernel's device time per 480x1000 detect
   detect-int8  the int8 serving Detector (quantized, static scales
            calibrated on one normalized batch of the smoke's frames, the
            s8-pooled chain) of vgg_small (the detect phase's weights,
@@ -107,11 +107,12 @@ Phases, each printing one flushed line with its seconds:
            ms/batch and img/s from packed device planes with the launch
            counts (1 of the family's int8 block0 kernel per call, 0 of the
            float block0 modes), and the share of the float path's
-           detections the int8 path matches (class, IoU >= 0.5); the
-           int8 block0 kernel's and NMS's device time per vgg_small
-           detect; NMS checked on both calls of a detect, each bucket
+           detections the int8 path matches (class, IoU >= 0.5); NMS
+           checked on both calls of a detect, each bucket
   profile-int8  device time of an int8 bf16 batch of each family by
-           kernel group, and each int8 conv layer group (quantize, im2col,
+           kernel group (with the int8 block0 kernel's and NMS's device
+           time per vgg_small detect), and each int8 conv layer group
+           (quantize, im2col,
            torch._int_mm, dequantize) timed beside the bf16 cuDNN
            convolutions of the float path at the same shapes
   train-kernels  the two training kernels against their plain versions at
@@ -129,9 +130,10 @@ Phases, each printing one flushed line with its seconds:
            the inputs of one more bf16 step (kept by a hook on its wrapper):
            against its plain version, two launches bitwise equal, its time
            and bound; the ROI-pool forward bitwise on one more step's own
-           inputs, and its device time per step
+           inputs
   train-profile  device time of a bf16 train step by kernel group and the
-           busy share, as the profile phase does for detect
+           busy share, as the profile phase does for detect, with the
+           ROI-pool forward's device time per step
   data     train from image files and evaluate mAP: 40 training, 16
            validation and 4 background seeded 1280x720 frames written as
            PNG, one corrupt PNG listed for training, a duplo CSV, the
@@ -213,8 +215,8 @@ Phases, each printing one flushed line with its seconds:
            224x800, kernels, remat) over a world-size-1 NCCL group, with
            its kernel launches
   bench    ``frcnn_tpu_torch.bench``'s JSON record for bf16, pallas+s2d,
-           int8s+pallas+s2d+s8p and imagenet+int8s+pallas+s2d at B=8, 2
-           iterations, each mode's kernel launches per call checked; the
+           int8s+pallas+s2d+s8p and imagenet+int8s+pallas+s2d at B=8, one
+           iteration, each mode's kernel launches per call checked; the
            float32 pallas+s2d program (weights that carry load + stress
            biases; proposals and detections nonzero) through the kernels
            against the plain versions
@@ -225,14 +227,19 @@ Phases, each printing one flushed line with its seconds:
            tools/bench_pool_bwd.py and tools/bench_scan.py at 2
            iterations: their lines, and the block0 and pool backward
            kernels' launches in them
-  accuracy 24 duplo-scale synthetic scenes and the detect phase's weights
-           as a run directory: eval_quant_parity (the four headline
-           modes), sweep_conf_gate, recall_attribution (fg 0.5, 0.95),
-           analyze_detections; then train_synthetic_eval --scale tiny; 8
-           imagenet_smoke photo scenes (mixed orientation) written and
-           read back through a BatchIterator, the corrupt ones skipped and
-           logged; train_synthetic_eval --scale imagenet_smoke, 8 steps;
-           every mAP printed, no accuracy limit
+  accuracy the photo checkpoint (artifacts/ckpt/photo_partial.ckpt) on
+           48 photo-scale scenes of its own generator (made on a thread
+           while the kernels build) at the published gates:
+           eval_quant_parity in the JAX reading's four modes (bf16,
+           int8_static, int8_static_s2d, int8_static_s2d_s8p), each mAP
+           beside the JAX package's TPU figure and each int8 mode's share
+           of the bf16 detections; sweep_conf_gate, recall_attribution
+           (fg 0.95), analyze_detections on the same run; then
+           train_synthetic_eval --scale tiny, 48 steps; 8 imagenet_smoke
+           photo scenes (mixed orientation) written and read back through
+           a BatchIterator, the corrupt ones skipped and logged;
+           train_synthetic_eval --scale imagenet_smoke, 8 steps
+  done     the second at which every phase had passed
 
 then one JSON line of per-kernel numbers (with ``device_ms``, the device
 time per path call where it was measured, NMS's ``device_ms_large`` per
@@ -258,9 +265,11 @@ never falls back to the CPU.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import faulthandler
+import functools
 import importlib
 import importlib.util
 import io
@@ -1324,15 +1333,22 @@ def _seeded_models(cfg, seed: int = 0, cls_spread: float = 20.0):
     return pnet, cnet
 
 
+@functools.lru_cache(maxsize=1)
+def _checkpoint():
+    """The photo checkpoint's payload, read once per run."""
+    from frcnn_tpu_torch.utils.serialization import load_checkpoint
+
+    return load_checkpoint(str(CKPT))
+
+
 def _load_models(phase: str = "detect"):
     from frcnn_tpu_torch.config import Config, duplo_config, serving_config
     from frcnn_tpu_torch.models.factory import create_models
-    from frcnn_tpu_torch.utils.serialization import load_checkpoint
     from frcnn_tpu_torch.utils.weights import from_jax_params
 
     t = time.perf_counter()
     if CKPT.exists():
-        payload = load_checkpoint(str(CKPT))
+        payload = _checkpoint()
         base = Config.from_json(payload["config_json"])
         cfg = serving_config(base.replace(shapes=dataclasses.replace(
             base.shapes, image_hw=IMAGE_HW)))
@@ -1472,18 +1488,14 @@ def phase_detect(kernels):
         f"{n_calls} calls", t)
     for k, n in launches.items():
         kernels[k]["launches"] = n
-    t = time.perf_counter()
-    dev = device_ms_per_call(lambda: det.detect((lum4, chroma), hw_dev), {
-        k: DEVICE_FRAGMENTS[k] for k in modules})
-    for k, v in dev.items():
-        kernels[k]["device_ms"] = v
-    log("detect", f"device time per bf16 detect (torch.profiler, mean per "
-        f"launch x launches per call): {_device_text(dev)}", t)
     check_roi_pool_detect(cfg, pnet, cnet, (lum4, chroma), hw_dev)
     check_nms_detect("detect", f"vgg_small bf16 {IMAGE_HW[0]}x{IMAGE_HW[1]}",
                      lambda: Detector(cfg, pnet, cnet, device="cuda").detect(
                          (lum4, chroma), hw_dev))
-    phase_profile(det, (lum4, chroma), hw_dev)
+    _, dev = phase_profile(det, (lum4, chroma), hw_dev,
+                           {k: DEVICE_FRAGMENTS[k] for k in modules})
+    for k, v in dev.items():
+        kernels[k]["device_ms"] = v
     del det
     detect_published(kernels, cfg, pnet, cnet, frames, true_hw,
                      (lum4, chroma), hw_dev)
@@ -1545,8 +1557,8 @@ def detect_published(kernels, cfg, pnet, cnet, frames, true_hw, planes,
     log("detect-6000", f"bf16 B={B} {what}: {wall:.2f} ms/batch from packed "
         f"device planes; {n_in} proposals into NMS, {n_roi} rois pooled, "
         f"{n_det} detections; launches {launches} over {n_calls} calls", t)
-    dev = profile_run("detect-6000", f"bf16 B={B} {what}",
-                      lambda: det.detect(planes, hw_dev), "batch")
+    dev, _ = profile_run("detect-6000", f"bf16 B={B} {what}",
+                         lambda: det.detect(planes, hw_dev), "batch")
     del det
     per_n = check_nms_detect(
         "detect-6000", f"vgg_small bf16 {what}",
@@ -1566,17 +1578,6 @@ DEVICE_FRAGMENTS = {
     "fused_block0": ("block0_kernel<__nv_bfloat16, __nv_bfloat16", 1),
     "block0_s8out": ("block0_kernel<__nv_bfloat16, signed char", 1),
 }
-
-
-def device_ms_per_call(fn, frags: dict, n_calls: int = 10):
-    """Device ms per call of ``fn()`` of each kernel in ``frags`` {name:
-    (fragment, launches per call)}: :func:`kernel_device_ms`'s mean per
-    launch times the launches per call. None for each where the trace
-    recorded no device time."""
-    got = kernel_device_ms(fn, [f for f, _ in frags.values()], n_calls)
-    if got is None:
-        return dict.fromkeys(frags)
-    return {k: got[f][0] * n for k, (f, n) in frags.items()}
 
 
 def _device_text(dev: dict) -> str:
@@ -1654,11 +1655,15 @@ PROFILE_GROUPS = (  # kernel-name fragment -> group, first match wins
 )
 
 
-def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
-    """Device time of ``fn()`` by kernel group (torch.profiler), and the
-    busy share of the device: that device time over the wall time of the
-    same calls run without the profiler. Returns the device ms per call
-    (None where the trace held no device time)."""
+def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3,
+                frags=None):
+    """Device time of ``fn()`` by kernel group (torch.profiler, device
+    activity only), and the busy share of the device: that device time
+    over the wall time of the same calls run without the profiler. Returns
+    the device ms per call (None where the trace held no device time) and,
+    for each kernel of ``frags`` {name: (fragment, launches per call)},
+    its device ms per call: the mean per launch the trace saw times the
+    launches per call (None where it saw none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1670,14 +1675,15 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
         fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t_run) * 1e6 / n_calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t_run = time.perf_counter()
         for _ in range(n_calls):
             fn()
         torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t_run) * 1e6 / n_calls
     groups, kernels, n_launch = {}, {}, 0
+    frags = frags or {}
+    seen = {k: [0.0, 0] for k in frags}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1686,22 +1692,29 @@ def profile_run(phase: str, what: str, fn, unit: str, n_calls: int = 3):
         g = next((v for k, v in PROFILE_GROUPS if k in e.name), "other")
         groups[g] = groups.get(g, 0.0) + us
         kernels[e.name] = kernels.get(e.name, 0.0) + us
+        for k, (f, _) in frags.items():
+            if f in e.name:
+                seen[k][0] += e.time_range.elapsed_us()
+                seen[k][1] += 1
+    dev = {k: seen[k][0] / seen[k][1] / 1e3 * n if seen[k][1] else None
+           for k, (_, n) in frags.items()}
     busy = sum(groups.values())
     if busy == 0:
         log(phase, "torch.profiler recorded no device time: not measured", t)
-        return None
+        return None, dev
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"[{phase}] {g}: {us / 1e3:.3f} ms/{unit} "
               f"({100 * us / busy:.1f}% of device time)", flush=True)
     for name, us in sorted(kernels.items(), key=lambda x: -x[1])[:8]:
         print(f"[{phase}] top kernel {us / 1e3:.3f} ms/{unit}: {name[:200]}",
               flush=True)
+    text = f"; device ms per {unit}: {_device_text(dev)}" if dev else ""
     log(phase, f"{what}: {busy / 1e3:.3f} ms/{unit} of device kernels; "
         f"{wall_us / 1e3:.3f} ms/{unit} wall without the profiler (busy "
         f"share {100 * busy / wall_us:.1f}%), {prof_wall_us / 1e3:.3f} "
         f"ms/{unit} under it; {n_launch / n_calls:.0f} kernel launches per "
-        f"{unit}", t)
-    return busy / 1e3
+        f"{unit}{text}", t)
+    return busy / 1e3, dev
 
 
 def kernel_device_ms(fn, fragments, n_calls: int = 10):
@@ -1714,8 +1727,7 @@ def kernel_device_ms(fn, fragments, n_calls: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_calls):
             fn()
         torch.cuda.synchronize()
@@ -1733,9 +1745,10 @@ def kernel_device_ms(fn, fragments, n_calls: int = 10):
     return {f: (us[f] / seen[f] / 1e3, seen[f]) for f in fragments}
 
 
-def phase_profile(det, planes, hw_dev):
-    profile_run("profile", f"bf16 serving B={B}",
-                lambda: det.detect(planes, hw_dev), "batch")
+def phase_profile(det, planes, hw_dev, frags):
+    return profile_run("profile", f"bf16 serving B={B}",
+                       lambda: det.detect(planes, hw_dev), "batch",
+                       frags=frags)
 
 
 # -- detect-large ---------------------------------------------------------------
@@ -1837,19 +1850,15 @@ def phase_detect_large(kernels):
             f"{dev_ms:.2f} ms/batch by CUDA events ({B / dev_ms * 1e3:.1f} "
             f"img/s); {n_in} proposals into NMS, {n_roi} rois pooled, "
             f"{n_det} detections; launches {launches}", t)
-        t = time.perf_counter()
-        dev = device_ms_per_call(lambda: det.detect(pl, true_hw), {
-            "nms_keep_mask": DEVICE_FRAGMENTS["nms_keep_mask"]})
-        if hw == LARGE_HW[0]:
-            kernels["nms_keep_mask"]["device_ms_large"] = dev["nms_keep_mask"]
-        log("detect-large", f"device time per vgg_large bf16 detect "
-            f"{hw[0]}x{hw[1]} (torch.profiler): {_device_text(dev)}", t)
         check_nms_detect("detect-large", f"vgg_large bf16 {hw[0]}x{hw[1]}",
                          lambda: det.detect(pl, true_hw))
     kernels["fused_block0_2conv"]["launches"] = total
-    profile_run("profile-large", f"vgg_large bf16 serving B={B} "
-                f"{LARGE_HW[0][0]}x{LARGE_HW[0][1]}",
-                lambda: det.detect(*planes[LARGE_HW[0]]), "batch")
+    _, dev = profile_run(
+        "profile-large", f"vgg_large bf16 serving B={B} "
+        f"{LARGE_HW[0][0]}x{LARGE_HW[0][1]}",
+        lambda: det.detect(*planes[LARGE_HW[0]]), "batch",
+        frags={"nms_keep_mask": DEVICE_FRAGMENTS["nms_keep_mask"]})
+    kernels["nms_keep_mask"]["device_ms_large"] = dev["nms_keep_mask"]
     del det, planes
     torch.cuda.empty_cache()
 
@@ -2038,14 +2047,9 @@ def phase_detect_int8(kernels):
     det, batches, n = _int8_family("detect-int8", cfg, pnet, cnet, 5,
                                    "block0_s8out")
     kernels["block0_s8out"]["launches"] = n
-    t = time.perf_counter()
-    planes, true_hw = batches[IMAGE_HW]
-    dev = device_ms_per_call(lambda: det.detect(planes, true_hw), {
+    dev = profile_int8("vgg_small", det, batches[IMAGE_HW], {
         k: DEVICE_FRAGMENTS[k] for k in ("block0_s8out", "nms_keep_mask")})
     kernels["block0_s8out"]["device_ms"] = dev["block0_s8out"]
-    log("detect-int8", f"device time per vgg_small int8 bf16 detect "
-        f"(torch.profiler): {_device_text(dev)}", t)
-    profile_int8("vgg_small", det, batches[IMAGE_HW])
     del det, batches
     torch.cuda.empty_cache()
 
@@ -2090,7 +2094,7 @@ def _conv_layers(cfg, hw):
     return out
 
 
-def profile_int8(family: str, det, batch):
+def profile_int8(family: str, det, batch, frags=None):
     """[profile-int8]: the int8 batch by kernel group, then each layer
     group of int8 convolutions (quantize, im2col, torch._int_mm,
     dequantize: ``models/quant.py::qconv``) against bf16 cuDNN
@@ -2099,9 +2103,10 @@ def profile_int8(family: str, det, batch):
     from frcnn_tpu_torch.ops import int8_conv
 
     planes, true_hw = batch
-    profile_run("profile-int8", f"{family} int8 bf16 serving B={B} "
-                f"{tuple(true_hw[0].tolist())}",
-                lambda: det.detect(planes, true_hw), "batch")
+    _, dev = profile_run("profile-int8", f"{family} int8 bf16 serving B={B} "
+                         f"{tuple(true_hw[0].tolist())}",
+                         lambda: det.detect(planes, true_hw), "batch",
+                         frags=frags)
     t = time.perf_counter()
     gen = torch.Generator().manual_seed(3)
     groups = {}
@@ -2137,6 +2142,7 @@ def profile_int8(family: str, det, batch):
     tot = [sum(g[i] for g in groups.values()) for i in range(5)]
     log("profile-int8", f"{family} convs after block 0: int8 {tot[1]:.4f} "
         f"ms/batch vs bf16 {tot[4]:.4f} ms/batch", t)
+    return dev
 
 
 # -- train kernels --------------------------------------------------------------
@@ -2227,7 +2233,7 @@ def _roi_edge_cases(gen):
 ROI_PASSES = ("roi_pool_bwd_ties_kernel", "roi_pool_bwd_kernel")
 
 
-def _roi_pass_split(run, n_calls: int = 10):
+def _roi_pass_split(run, n_calls: int = 4):
     """The ROI-pool backward's two passes' device time, as text."""
     split = kernel_device_ms(run, ROI_PASSES, n_calls)
     if split is None:
@@ -2333,22 +2339,17 @@ def check_roi_pool_bwd_step(trainer, batch):
         f"{ms:.4f} ms ({split}), bound {bms:.5f} ms ({by})", t)
 
 
-def check_roi_pool_step(trainer, batch, res):
+def check_roi_pool_step(trainer, batch):
     """The ROI-pool forward on the inputs of one bf16 train step, kept by
-    a hook on the wrapper: bitwise its plain version; its device time per
-    step."""
+    a hook on the wrapper: bitwise its plain version."""
     from frcnn_tpu_torch.ops import roi_pool as plain
     from frcnn_tpu_torch.ops import roi_pool_kernel as K
 
     t = time.perf_counter()
     fm, rects, valid, k = _kept_roi_pool(lambda: trainer.run_step(batch))
     _roi_equal(K, plain, fm.detach(), rects, valid, "train step's inputs", k)
-    dev = device_ms_per_call(lambda: trainer.run_step(batch), {
-        "roi_pool": DEVICE_FRAGMENTS["roi_pool"]}, n_calls=5)
-    res["device_ms_train_step"] = dev["roi_pool"]
     log("train", f"roi_pool on the step's own inputs ({str(fm.dtype)[6:]}, "
-        f"{_roi_stats(rects, valid)}): bitwise equal; device time per step "
-        f"(torch.profiler): {_device_text(dev)}", t)
+        f"{_roi_stats(rects, valid)}): bitwise equal", t)
 
 
 def check_pool_bwd(gen):
@@ -2359,14 +2360,18 @@ def check_pool_bwd(gen):
     lib_bwd = torch.ops.aten.max_pool2d_with_indices_backward
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
            "max_abs_err": 0.0}
+    # the inputs are drawn on the card (a generator seeded from ``gen``)
+    dgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
     for (C, H, W) in POOL_INPUTS + (ODD_W_INPUT,):
         for dt in (torch.bfloat16, torch.float32):
             # three levels: ties in most windows, routed to the first max
-            x = (torch.randint(0, 3, (B, C, H, W), generator=gen)
-                 .to(dt).cuda().contiguous(memory_format=torch.channels_last))
+            x = (torch.randint(0, 3, (B, C, H, W), generator=dgen,
+                               device="cuda")
+                 .to(dt).contiguous(memory_format=torch.channels_last))
             y, idx = F.max_pool2d(x, 2, 2, ceil_mode=True,
                                   return_indices=True)
-            g = torch.randn(y.shape, generator=gen).to(dt).cuda() \
+            g = torch.randn(y.shape, generator=dgen, device="cuda").to(dt) \
                 .contiguous(memory_format=torch.channels_last)
             xh, gh = x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1)
             got = K.ceil_max_pool_2x2_bwd(xh, gh)
@@ -2575,18 +2580,21 @@ def phase_train(kernels):
             for k in ("roi_pool_bwd", "pool_bwd"):
                 kernels[k]["launches"] = launches[k]
             check_roi_pool_bwd_step(trainer, batch)
-            check_roi_pool_step(trainer, batch, kernels["roi_pool"])
+            check_roi_pool_step(trainer, batch)
         else:
             del trainer
             torch.cuda.empty_cache()
-    profile_run("train-profile", f"bf16 train step B={B}, pool backward "
-                f"kernel", lambda: trainer.run_step(batch), "step")
+    _, dev = profile_run(
+        "train-profile", f"bf16 train step B={B}, pool backward kernel",
+        lambda: trainer.run_step(batch), "step",
+        frags={"roi_pool": DEVICE_FRAGMENTS["roi_pool"]})
+    kernels["roi_pool"]["device_ms_train_step"] = dev["roi_pool"]
     return steps_ms
 
 
 # -- vgg_large training --------------------------------------------------------
 
-LARGE_TRAIN_STEPS = 3
+LARGE_TRAIN_STEPS = 1
 # rows 2, 4 and 5 in a train step's trace: (name test, launches per step)
 TRAIN_DEVICE = {
     "roi_pool": (lambda n: "roi_pool_kernel" in n, 1),
@@ -2985,7 +2993,7 @@ def phase_data(kernels, fixed_ms_step: float, root: Path) -> Path:
     bare_ms = _host_ms(bare, HOST_BATCHES)
     pre = PrefetchingIterator(BatchIterator(cfg, str(manifest), seed=1))
     try:
-        pre_ms = _host_ms(pre, 3)
+        pre_ms = _host_ms(pre, 1)
     finally:
         pre.close()
     skipped = [m for m in capture.messages if CORRUPT in m]
@@ -2997,7 +3005,7 @@ def phase_data(kernels, fixed_ms_step: float, root: Path) -> Path:
         f"({'native' if bare.use_native else 'Python'} path): "
         f"{bare_ms:.1f} ms/batch bare over {HOST_BATCHES}, "
         f"{pre_ms:.1f} ms/batch through PrefetchingIterator(depth=2) "
-        f"over 3 with nothing else running; per frame {split}; "
+        f"over 1 with nothing else running; per frame {split}; "
         f"{CORRUPT} skipped and logged: {skipped[0]!r}", t)
 
     # train from the files: the slice's main path, counts read around it
@@ -3645,11 +3653,11 @@ BENCH_MODES = {      # mode -> the kernels its program launches
     "imagenet+int8s+pallas+s2d": {"block0_2conv_int8", "nms_keep_mask",
                                   "roi_pool"},
 }
-BENCH_ITERS = 2
+BENCH_ITERS = 1
 
 
 def phase_bench(kernels, device: str = "cuda"):
-    """``frcnn_tpu_torch.bench``'s measurement at B=8, 2 iterations, for
+    """``frcnn_tpu_torch.bench``'s measurement at B=8, one iteration, for
     four modes: one JSON record each, with the kernel launches per timed
     call (each mode's kernels, and none for bf16); then the float32
     ``pallas+s2d`` program, with weights that carry load
@@ -4079,8 +4087,18 @@ def phase_micro(kernels):
 
 # -- the accuracy tools ------------------------------------------------------------
 
-ACC_IMAGES = 24      # a quarter of them the validation split
-TINY_STEPS = 160
+# the photo checkpoint's own scale: the first 50 scenes of seed 0 (those of
+# `train_synthetic_eval --scale photo --images 960`), two of them corrupt
+ACC_SCENES = 50
+ACC_CALIB = 8
+ACC_MODES = ("bf16", "int8_static", "int8_static_s2d", "int8_static_s2d_s8p")
+# each mode's kernels on the card: the plain nhwc modes launch none
+ACC_LAUNCHES = {"int8_static_s2d": {"fused_block0", "nms_keep_mask",
+                                    "roi_pool"},
+                "int8_static_s2d_s8p": {"block0_s8out", "nms_keep_mask",
+                                        "roi_pool"}}
+JAX_READING = ROOT / "docs" / "accuracy" / "photo_r5_quant_parity.json"
+TINY_STEPS = 48
 PHOTO_SCENES = 8     # imagenet_smoke photo scenes read back
 PHOTO_STEPS = 8      # train_synthetic_eval --scale imagenet_smoke
 
@@ -4106,14 +4124,36 @@ def _tool(name: str, main, argv, phase: str = "accuracy"):
     return lines, launches
 
 
-def phase_accuracy(root: Path, device: str = "cuda"):
-    """The accuracy tools on the card: the duplo-scale synthetic scenes
-    (24 PNGs of 800x450, seed 0) and a checkpoint (the detect phase's
-    weights) make a run directory; eval_quant_parity over its four headline
-    modes, sweep_conf_gate, recall_attribution (fg 0.5, 0.95) and
-    analyze_detections on it; then train_synthetic_eval at the tiny scale.
-    Every mAP is printed; no accuracy limit: a path check."""
+def _accuracy_scenes(root: Path) -> None:
+    """The ``[accuracy]`` phase's photo scenes and their manifest under
+    ``root/acc/dataset`` (``main`` makes them on a thread during the
+    build)."""
     from frcnn_tpu_torch.data.importers import create_duplo_manifest
+    from frcnn_tpu_torch.tools import train_synthetic_eval as TSE
+
+    data = root / "acc" / "dataset"
+    w, h, lo, hi, n_cls = TSE.SCALES["photo"][:5]
+    csv = TSE.make_photo_dataset(str(data), ACC_SCENES, w, h, n_cls, lo, hi,
+                                 seed=0)
+    create_duplo_manifest("synthetic-photo", csv, None,
+                          str(data / "manifest.json"),
+                          validation_size=ACC_SCENES, seed=0)
+
+
+def phase_accuracy(root: Path, device: str = "cuda", scenes=None):
+    """The photo checkpoint (``photo_partial.ckpt``) scored on its own
+    scale's scenes at the published gates: ``ACC_SCENES`` photo scenes
+    (800x450, seed 0) make a run directory; eval_quant_parity over the
+    JAX reading's four modes, each mode's mAP beside the JAX package's
+    (``docs/accuracy/photo_r5_quant_parity.json``: 240 validation scenes
+    of the JAX generator, on a TPU; its int8 scales calibrated on the
+    normalized RGB bytes of the wire, not on the program's YUV planes, see
+    ``eval_quant_parity.calibration_batch``) and each int8
+    mode's share of the card's bf16 detections; sweep_conf_gate,
+    recall_attribution and analyze_detections on the same run; then
+    train_synthetic_eval at the tiny and imagenet_smoke scales (path
+    checks) and the imagenet_smoke scenes read back. ``scenes``: the
+    future of ``_accuracy_scenes`` (else they are made here)."""
     from frcnn_tpu_torch.tools import (
         analyze_detections,
         eval_quant_parity,
@@ -4121,64 +4161,77 @@ def phase_accuracy(root: Path, device: str = "cuda"):
         sweep_conf_gate,
         train_synthetic_eval,
     )
-    from frcnn_tpu_torch.utils.serialization import (
-        load_checkpoint,
-        save_checkpoint,
-    )
-    from frcnn_tpu_torch.utils.weights import to_jax_params
+    from frcnn_tpu_torch.utils.serialization import save_checkpoint
 
+    if not CKPT.exists():
+        raise AssertionError(f"accuracy: {CKPT.relative_to(ROOT)} is absent; "
+                             f"the reading needs the trained weights")
     t = time.perf_counter()
     run, data = root / "acc", root / "acc" / "dataset"
-    w, h, lo, hi, n_cls = train_synthetic_eval.SCALES["duplo"][:5]
-    csv = train_synthetic_eval.make_dataset(str(data), ACC_IMAGES, w, h,
-                                            n_cls, lo, hi, seed=0)
-    manifest = str(data / "manifest.json")
-    create_duplo_manifest("synthetic-duplo", csv, None, manifest,
-                          validation_size=0.25, seed=0)
-    cfg = train_synthetic_eval.duplo_scale_cfg(n_cls).replace(
-        examples_base_path=str(data))
-    if CKPT.exists():
-        payload = load_checkpoint(str(CKPT))
-        params, stats, step = (payload["params"], payload["batch_stats"],
-                               int(payload["step"]))
-        src = f"{CKPT.relative_to(ROOT)} (step {step})"
+    if scenes is None:
+        _accuracy_scenes(root)
     else:
-        pnet, cnet = _seeded_models(cfg)
-        params, stats = to_jax_params(pnet.state_dict(), cnet.state_dict(),
-                                      cfg)
-        step, src = 0, "seeded initialisation (no checkpoint in the tree)"
-    save_checkpoint(str(run / "final.ckpt"), params=params,
-                    batch_stats=stats, step=step, config_json=cfg.to_json())
-    log("accuracy", f"{ACC_IMAGES} duplo-scale PNGs of {w}x{h} (seed 0) and "
-        f"the weights of {src} in {run.name}/final.ckpt", t)
+        scenes.result()
+    w, h = train_synthetic_eval.SCALES["photo"][:2]
+    manifest = str(data / "manifest.json")
+    # the checkpoint's weights with the run's config (analyze_detections
+    # reads the files where the checkpoint's config_json says)
+    payload = _checkpoint()
+    cfg = train_synthetic_eval.run_config(str(run), "photo")
+    save_checkpoint(str(run / "final.ckpt"), params=payload["params"],
+                    batch_stats=payload["batch_stats"], step=payload["step"],
+                    config_json=cfg.to_json())
+    n_val = ACC_SCENES - 2
+    log("accuracy", f"{ACC_SCENES} photo-scale scenes of {w}x{h} (seed 0; "
+        f"{n_val} decodable, 2 corrupt) and the weights of "
+        f"{CKPT.relative_to(ROOT)} (step {int(payload['step'])}) in "
+        f"{run.name}/final.ckpt", t)
 
     t = time.perf_counter()
-    common = ["--run", str(run), "--scale", "duplo", "--device", device]
-    n_val = str(ACC_IMAGES // 4)
+    common = ["--run", str(run), "--scale", "photo", "--device", device]
     _, launches = _tool("eval_quant_parity", eval_quant_parity.main,
-                        [*common, "--eval-count", n_val, "--calib-count",
-                         n_val])
-    # int8_static_s2d: the float block0 kernel (the duplo config's chain
-    # is not s8-pooled), both NMS calls and the ROI pool
-    if device == "cuda" and not {"fused_block0", "nms_keep_mask",
-                                 "roi_pool"} <= set(launches):
-        raise AssertionError(f"eval_quant_parity: launches {launches}")
+                        [*common, "--eval-count", str(n_val),
+                         "--calib-count", str(ACC_CALIB), "--modes",
+                         ",".join(ACC_MODES)])
+    want = set().union(*ACC_LAUNCHES.values())
+    if device == "cuda" and set(launches) != want:
+        raise AssertionError(f"eval_quant_parity: launches {launches}, "
+                             f"expected {sorted(want)}")
+    got = json.loads((run / "quant_parity.json").read_text())
+    ref = json.loads(JAX_READING.read_text())
+    for mode in ACC_MODES:
+        r = got[mode]
+        if r["num_gt"] == 0 or r["num_detections"] == 0 or not \
+                np.isfinite(r["mAP"]):
+            raise AssertionError(f"accuracy {mode}: {r}")
+        share = ""
+        if mode != "bf16":
+            (a, na), (b, nb) = r["matched_bf16"], r["matched_by_bf16"]
+            share = (f"; matches {a}/{na} = {a / na:.4f} of bf16's "
+                     f"detections, bf16 matches {b}/{nb} = {b / nb:.4f} of "
+                     f"its")
+        wire = ("" if mode == "bf16" else ", its static scales "
+                "calibrated on the normalized RGB bytes of the wire")
+        print(f"[accuracy] {mode}: mAP {r['mAP']:.4f} over {n_val} photo "
+              f"scenes ({r['num_detections']} detections, {r['num_gt']} gt)"
+              f"; the JAX package on a TPU: {ref[mode]['mAP']:.4f} over "
+              f"{ref[mode]['num_gt']} gt of 240 scenes{wire}{share}",
+              flush=True)
     _tool("sweep_conf_gate", sweep_conf_gate.main,
-          [*common, "--eval-count", n_val])
+          [*common, "--eval-count", str(n_val)])
     _tool("recall_attribution", recall_attribution.main,
-          [*common, "--eval-count", n_val, "--fg", "0.5,0.95"])
+          [*common, "--eval-count", str(n_val), "--fg", "0.95"])
     _tool("analyze_detections", analyze_detections.main,
           ["--ckpt", str(run / "final.ckpt"), "--manifest", manifest,
-           "--count", n_val, "--device", device])
+           "--count", str(n_val), "--device", device])
     log("accuracy", "eval_quant_parity, sweep_conf_gate, "
         "recall_attribution and analyze_detections ran on the card", t)
 
     t = time.perf_counter()
-    lines, _ = _tool("train_synthetic_eval", train_synthetic_eval.main,
-                     ["--scale", "tiny", "--steps", str(TINY_STEPS),
-                      "--out", str(root / "tiny"), "--chunk", "16",
-                      "--eval-count", "15", "--demo-count", "2",
-                      "--device", device])
+    _tool("train_synthetic_eval", train_synthetic_eval.main,
+          ["--scale", "tiny", "--steps", str(TINY_STEPS), "--out",
+           str(root / "tiny"), "--chunk", "16", "--eval-count", "15",
+           "--demo-count", "2", "--device", device])
     result = json.loads((root / "tiny" / "result.json").read_text())
     if result["steps"] != TINY_STEPS:
         raise AssertionError(f"train_synthetic_eval: {result}")
@@ -4740,7 +4793,11 @@ def phase_shapes(kernels):
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     name, smi = phase_env()
-    phase_build()
+    acc = tempfile.TemporaryDirectory()
+    # the host makes [accuracy]'s scenes while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        scenes = pool.submit(_accuracy_scenes, Path(acc.name))
+        phase_build()
     kernels, two_conv = phase_kernels()
     phase_api(kernels, smi)
     kernels.update(phase_kernels_int8(two_conv))
@@ -4760,8 +4817,9 @@ def main() -> int:
     phase_bench(kernels)
     phase_profile_stages()
     phase_micro(kernels)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_accuracy(Path(tmp))
+    with acc:
+        phase_accuracy(Path(acc.name), scenes=scenes)
+    log("done", "every phase passed", time.perf_counter())
     from frcnn_tpu_torch.ops.cuda_lib import REGISTRY
 
     line = []

@@ -159,6 +159,20 @@ def _draw_brick(img, rng, x0, y0, bw, bh, color):
     """Composite one shaded toy-brick onto ``img`` in place: drop shadow,
     directional-gradient body, lighter top face, studs, sensor noise
     (``scripts/train_synthetic_eval.py::_draw_brick``, the same draws)."""
+    _paint_brick(img, x0, y0, bw, bh, color, _brick_draws(rng, bw, bh))
+
+
+def _brick_draws(rng, bw, bh):
+    """The random draws of one brick, in ``_draw_brick``'s order: the
+    gradient's angle, the top face's share of the height, the noise."""
+    ang = rng.uniform(0, 2 * np.pi)
+    top = rng.uniform(0.12, 0.22)
+    return ang, top, rng.normal(0, 6, (bh, bw, 3))
+
+
+def _paint_brick(img, x0, y0, bw, bh, color, draws):
+    """``_draw_brick`` with its draws made beforehand."""
+    ang, top, noise = draws
     h, w = img.shape[:2]
     sx0, sy0 = min(x0 + 6, w), min(y0 + 7, h)
     sx1, sy1 = min(x0 + bw + 9, w), min(y0 + bh + 10, h)
@@ -168,11 +182,10 @@ def _draw_brick(img, rng, x0, y0, bw, bh, color):
     body = np.broadcast_to(
         np.asarray(color, np.float32), (bh, bw, 3)).copy()
     yy, xx = np.mgrid[0:bh, 0:bw].astype(np.float32)
-    ang = rng.uniform(0, 2 * np.pi)
     g = (np.cos(ang) * xx / max(bw, 1) + np.sin(ang) * yy / max(bh, 1))
     g = (g - g.min()) / max(g.max() - g.min(), 1e-6)
     body *= (0.62 + 0.43 * g)[:, :, None]
-    top_h = max(2, int(bh * rng.uniform(0.12, 0.22)))
+    top_h = max(2, int(bh * top))
     body[:top_h] = np.minimum(body[:top_h] * 1.45 + 18, 255)
     n_studs = max(1, bw // 44)
     r = max(2, int(min(bw, bh) * 0.10))
@@ -189,8 +202,89 @@ def _draw_brick(img, rng, x0, y0, bw, bh, color):
             patch[disk] = np.minimum(patch[disk] * 1.25 + 25, 255)
     body[0], body[-1] = body[0] * 0.55, body[-1] * 0.55
     body[:, 0], body[:, -1] = body[:, 0] * 0.55, body[:, -1] * 0.55
-    body += rng.normal(0, 6, body.shape)
+    body += noise
     img[y0:y0 + bh, x0:x0 + bw] = body.clip(0, 255).astype(np.uint8)
+
+
+def _plan_photo_scene(rng, backgrounds, img_w, img_h, n_classes, box_lo,
+                      box_hi, max_boxes):
+    """Every random draw of one photo scene, in the JAX function's order:
+    (background, bricks, degradation, CSV boxes). ``_render_photo_scene``
+    makes the pixels from it without drawing."""
+    if backgrounds:
+        bi = int(rng.integers(0, len(backgrounds)))
+        bh0, bw0 = backgrounds[bi].shape[:2]
+        # random crop with the target aspect, then resize
+        frac = rng.uniform(0.5, 1.0)
+        cw = max(int(bw0 * frac), 64)
+        ch = max(min(int(cw * img_h / img_w), bh0), 48)
+        cw = min(int(ch * img_w / img_h), bw0)
+        cx = int(rng.integers(0, bw0 - cw + 1))
+        cy = int(rng.integers(0, bh0 - ch + 1))
+        flip = rng.random() < 0.5
+        light = rng.uniform(0.55, 1.05)            # global illumination
+        cast = rng.normal(0, 10, 3)                # color cast
+        background = ("photo", bi, cy, ch, cx, cw, flip, light, cast)
+    else:       # no photographs: the textured fallback
+        background = ("texture", rng.integers(
+            30, 120, size=(img_h // 8, img_w // 8, 3)))
+    placed, bricks = [], []
+    for _ in range(int(rng.integers(1, max_boxes + 1))):
+        ci = int(rng.integers(0, n_classes))
+        bw = int(rng.integers(box_lo, box_hi))
+        bh = int(rng.integers(box_lo, box_hi))
+        for _try in range(20):
+            x0 = int(rng.integers(0, img_w - bw))
+            y0 = int(rng.integers(0, img_h - bh))
+            cand = (x0, y0, x0 + bw, y0 + bh)
+            # partial occlusion allowed: reject only IoU >= 0.25
+            ok = True
+            for p in placed:
+                ix = max(0, min(cand[2], p[2]) - max(cand[0], p[0]))
+                iy = max(0, min(cand[3], p[3]) - max(cand[1], p[1]))
+                inter = ix * iy
+                union = bw * bh + (p[2] - p[0]) * (p[3] - p[1]) - inter
+                if inter / union >= 0.25:
+                    ok = False
+                    break
+            if ok:
+                break
+        else:
+            continue
+        placed.append(cand)
+        bricks.append((ci, x0, y0, bw, bh, _brick_draws(rng, bw, bh)))
+    # camera-pipeline degradation
+    blur = rng.uniform(0.0, 1.0)
+    noise = rng.normal(0, rng.uniform(1.0, 5.0), (img_h, img_w, 3))
+    quality = int(rng.integers(55, 95))
+    return (img_w, img_h, background, bricks, blur, noise, quality)
+
+
+def _render_photo_scene(plan, backgrounds, path):
+    """Writes the scene of ``_plan_photo_scene``'s plan to ``path``."""
+    from frcnn_tpu_torch.data.codec import jpeg_roundtrip, write_png
+    from frcnn_tpu_torch.data.pipeline import gaussian_blur, resize_uint8
+
+    img_w, img_h, background, bricks, blur, noise, quality = plan
+    if background[0] == "photo":
+        _, bi, cy, ch, cx, cw, flip, light, cast = background
+        img = resize_uint8(backgrounds[bi][cy:cy + ch, cx:cx + cw], img_w,
+                           img_h).astype(np.float32)
+        if flip:
+            img = img[:, ::-1]
+        img *= light
+        img += cast
+        img = img.clip(0, 255).astype(np.uint8)
+    else:
+        img = resize_uint8(background[1].astype(np.uint8), img_w, img_h)
+    for ci, x0, y0, bw, bh, draws in bricks:
+        _paint_brick(img, x0, y0, bw, bh, CLASS_COLORS[ci], draws)
+    if blur > 0.25:
+        img = gaussian_blur(img, blur)
+    img = img.astype(np.float32)
+    img += noise
+    write_png(path, jpeg_roundtrip(img.clip(0, 255).astype(np.uint8),
+                                   quality))
 
 
 def make_photo_dataset(out_dir: str, n_images: int, img_w: int, img_h: int,
@@ -206,9 +300,10 @@ def make_photo_dataset(out_dir: str, n_images: int, img_w: int, img_h: int,
     ``mixed_orientation`` swaps width and height for about half the scenes
     (both imagenet buckets). Without photographs (:func:`_bundled_photos`
     empty) the backgrounds are the JAX function's textured fallback.
+    The draws are made in order on this thread and the pixels are made and
+    written by a pool of threads, so the files do not depend on the pool.
     Returns the CSV path."""
-    from frcnn_tpu_torch.data.codec import jpeg_roundtrip, write_png
-    from frcnn_tpu_torch.data.pipeline import gaussian_blur, resize_uint8
+    from concurrent.futures import ThreadPoolExecutor
 
     meta = dict(kind="photo", n_images=n_images, img_w=img_w, img_h=img_h,
                 n_classes=n_classes, box_lo=box_lo, box_hi=box_hi,
@@ -222,66 +317,25 @@ def make_photo_dataset(out_dir: str, n_images: int, img_w: int, img_h: int,
     rows = []
     os.makedirs(out_dir, exist_ok=True)
     base_wh = (img_w, img_h)
-    for i in range(n_images):
-        if mixed_orientation:
-            img_w, img_h = base_wh if rng.random() < 0.5 else base_wh[::-1]
-        if backgrounds:
-            bg = backgrounds[int(rng.integers(0, len(backgrounds)))]
-            bh0, bw0 = bg.shape[:2]
-            # random crop with the target aspect, then resize
-            frac = rng.uniform(0.5, 1.0)
-            cw = max(int(bw0 * frac), 64)
-            ch = max(min(int(cw * img_h / img_w), bh0), 48)
-            cw = min(int(ch * img_w / img_h), bw0)
-            cx = int(rng.integers(0, bw0 - cw + 1))
-            cy = int(rng.integers(0, bh0 - ch + 1))
-            img = resize_uint8(bg[cy:cy + ch, cx:cx + cw], img_w,
-                               img_h).astype(np.float32)
-            if rng.random() < 0.5:
-                img = img[:, ::-1]
-            img *= rng.uniform(0.55, 1.05)        # global illumination
-            img += rng.normal(0, 10, 3)           # color cast
-            img = img.clip(0, 255).astype(np.uint8)
-        else:       # no photographs: the textured fallback
-            base = rng.integers(30, 120, size=(img_h // 8, img_w // 8, 3))
-            img = resize_uint8(base.astype(np.uint8), img_w, img_h)
-        placed = []
-        for _ in range(int(rng.integers(1, max_boxes + 1))):
-            ci = int(rng.integers(0, n_classes))
-            bw = int(rng.integers(box_lo, box_hi))
-            bh = int(rng.integers(box_lo, box_hi))
-            for _try in range(20):
-                x0 = int(rng.integers(0, img_w - bw))
-                y0 = int(rng.integers(0, img_h - bh))
-                cand = (x0, y0, x0 + bw, y0 + bh)
-                # partial occlusion allowed: reject only IoU >= 0.25
-                ok = True
-                for p in placed:
-                    ix = max(0, min(cand[2], p[2]) - max(cand[0], p[0]))
-                    iy = max(0, min(cand[3], p[3]) - max(cand[1], p[1]))
-                    inter = ix * iy
-                    union = bw * bh + (p[2] - p[0]) * (p[3] - p[1]) - inter
-                    if inter / union >= 0.25:
-                        ok = False
-                        break
-                if ok:
-                    break
-            else:
-                continue
-            placed.append(cand)
-            _draw_brick(img, rng, x0, y0, bw, bh, CLASS_COLORS[ci])
-            rows.append(
-                f'"img{i:04d}.png", {x0}, {y0}, {x0 + bw}, {y0 + bh}, '
-                f'"{CLASS_NAMES[ci]}", {ci}, "M", 0'
-            )
-        # camera-pipeline degradation
-        blur = rng.uniform(0.0, 1.0)
-        if blur > 0.25:
-            img = gaussian_blur(img, blur)
-        img = img.astype(np.float32)
-        img += rng.normal(0, rng.uniform(1.0, 5.0), img.shape)
-        write_png(os.path.join(out_dir, f"img{i:04d}.png"), jpeg_roundtrip(
-            img.clip(0, 255).astype(np.uint8), int(rng.integers(55, 95))))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        pending = []
+        for i in range(n_images):
+            if mixed_orientation:
+                img_w, img_h = (base_wh if rng.random() < 0.5
+                                else base_wh[::-1])
+            plan = _plan_photo_scene(rng, backgrounds, img_w, img_h,
+                                     n_classes, box_lo, box_hi, max_boxes)
+            for ci, x0, y0, bw, bh, _ in plan[3]:
+                rows.append(
+                    f'"img{i:04d}.png", {x0}, {y0}, {x0 + bw}, '
+                    f'{y0 + bh}, "{CLASS_NAMES[ci]}", {ci}, "M", 0')
+            pending.append(pool.submit(
+                _render_photo_scene, plan, backgrounds,
+                os.path.join(out_dir, f"img{i:04d}.png")))
+            if len(pending) >= 16:      # bound the planned noise frames
+                pending.pop(0).result()
+        for f in pending:
+            f.result()
     for i in range(min(n_corrupt, n_images)):
         with open(os.path.join(out_dir, f"img{i:04d}.png"), "wb") as f:
             f.write(CORRUPT_BYTES)

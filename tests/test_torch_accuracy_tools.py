@@ -53,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from scripts import analyze_detections as j_analyze  # noqa: E402
 from scripts import train_synthetic_eval as j_tse  # noqa: E402
+from tests import photo_reading as PR  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -159,6 +160,51 @@ def test_make_photo_dataset_without_photographs(tmp_path, monkeypatch):
     mtime = os.path.getmtime(tmp_path / "a" / "img0002.png")
     assert TSE.make_photo_dataset(str(tmp_path / "a"), *args, seed=1) == a
     assert os.path.getmtime(tmp_path / "a" / "img0002.png") == mtime
+
+
+def test_calibration_batch_is_in_the_detect_programs_color_space(tmp_path):
+    """``eval_quant_parity.calibration_batch`` normalizes the validation
+    frames in the config's color space, as the detect program feeds its
+    backbone: under ``uint8_wire`` the JAX script
+    (``scripts/eval_quant_parity.py:78-85``) normalizes the wire's RGB
+    bytes instead, and its static scales then belong to other inputs.
+    Held against the JAX package's ``normalize_image`` of
+    ``unwire_uint8`` of the JAX iterator's batch (float32 normalization
+    noise: 1e-2, as ``tests/test_torch_trained.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from frcnn_tpu.data.pipeline import BatchIterator as JIterator
+    from frcnn_tpu.ops.color import unwire_uint8
+    from frcnn_tpu.ops.normalization import normalize_image
+    from frcnn_tpu_torch.data.importers import (
+        create_duplo_manifest,
+        save_manifest,
+    )
+
+    csv = TSE.make_photo_dataset(str(tmp_path), 6, *PHOTO_WH, 3, 24, 60,
+                                 seed=0, n_corrupt=0)
+    manifest = str(tmp_path / "manifest.json")
+    save_manifest(create_duplo_manifest("photo", csv, None,
+                                        validation_size=6, seed=0), manifest)
+    cfg = TSE.imagenet_smoke_cfg(3).replace(examples_base_path=str(tmp_path))
+    jcfg = j_tse.imagenet_smoke_cfg(3).replace(
+        examples_base_path=str(tmp_path))
+    assert cfg.uint8_wire and jcfg.uint8_wire and cfg.color_space == "yuv"
+    got = QP.calibration_batch(cfg, manifest, 4, "cpu").numpy()
+    imgs, hws, _ = JIterator(jcfg, manifest, seed=123
+                             ).padded_validation_batch(4)
+    assert imgs.dtype == np.uint8 and got.shape == imgs.shape
+    n = jcfg.normalization
+
+    def norm(x):
+        return np.asarray(jax.vmap(lambda im, hw: normalize_image(
+            im, hw[0], hw[1], method=n.method, width=n.width,
+            centering=n.centering, scaling=n.scaling))(x, jnp.asarray(hws)))
+
+    want = norm(unwire_uint8(jnp.asarray(imgs), jcfg.color_space))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
+    assert np.abs(norm(jnp.asarray(imgs)) - got).max() > 1.0
 
 
 @pytest.mark.parametrize("quality", [55, 75, 94])
@@ -362,11 +408,33 @@ def test_tools_run_end_to_end_on_the_cpu(tmp_path, capsys):
     result = json.loads(Path(run, "result.json").read_text())
     assert result["steps"] == 12 and result["num_images"] == 3
 
+    dets = str(tmp_path / "port.json")
     assert QP.main(["--run", run, "--scale", "tiny", "--device", "cpu",
-                    "--eval-count", "3", "--calib-count", "2"]) == 0
+                    "--eval-count", "3", "--calib-count", "2",
+                    "--detections", dets]) == 0
     parity = json.loads(Path(run, "quant_parity.json").read_text())
     assert set(QP.HEADLINE) <= set(parity) and parity["_step"] == 12
     assert parity["bf16"]["mAP_delta_vs_bf16"] == 0
+    # each mode's detections per image: 3 images, the shares of the
+    # parity file recomputed from them, a reading matching itself
+    per_image = json.loads(Path(dets).read_text())
+    assert set(per_image) == set(QP.HEADLINE)
+    base = per_image["bf16"]["images"]
+    assert len(base) == 3 and len({x["digest"] for x in base}) == 3
+    for mode in QP.HEADLINE[1:]:
+        m = QP.match_detections(base, per_image[mode]["images"])
+        assert parity[mode]["matched_bf16"] == [m["a"], m["n_a"]]
+        assert parity[mode]["matched_by_bf16"] == [m["b"], m["n_b"]]
+    m = QP.match_detections(base, base)
+    assert m["a"] == m["n_a"] == parity["bf16"]["num_detections"]
+    assert m["misses"] == []
+    # the JAX package's reading of the same run (tests/photo_reading.py):
+    # the same images, and in the tiny config's float32 the same detections
+    jax = PR.read(run, "final.ckpt", ["bf16"], 3, calib_count=2,
+                  scale="tiny")
+    m = QP.match_detections(jax["bf16"]["images"], base)
+    assert m["a"] == m["n_a"] and m["b"] == m["n_b"], m
+    assert jax["bf16"]["num_gt"] == parity["bf16"]["num_gt"]
 
     assert SG.main(["--run", run, "--scale", "tiny", "--device", "cpu",
                     "--eval-count", "3"]) == 0
